@@ -8,3 +8,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA card; skips without one "
+        "(chip_smoke.py covers the same checks on the card)")

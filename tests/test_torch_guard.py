@@ -1,0 +1,140 @@
+"""Guards of the port's boundaries: no JAX and nothing of the JAX package
+inside ``repro_torch`` or ``chip_smoke.py``, and entry points that run on
+the card unless the caller asks for the CPU."""
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import proxy_search
+from repro_torch.core.replay import ProxyProgram
+from repro_torch.core.synthesize import synthesize
+from repro_torch.core.trace_ir import TraceStore
+from repro_torch.workloads import synthetic_rank_traces
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules() -> list[str]:
+    out = []
+    for p in sorted(PKG.rglob("*.py")):
+        parts = p.relative_to(PKG.parent).with_suffix("").parts
+        out.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return out
+
+
+def test_every_module_imports_without_jax_or_the_reference():
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "             and (m == 'repro' or m.startswith(('repro.', 'jax'))))\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 20
+
+
+def _imports(path: Path) -> set[str]:
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports_in_source(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), (path, name)
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """No card: non-zero exit and no result line.  Alone in a directory:
+    the same."""
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if script.parent == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        proc = subprocess.run([sys.executable, str(script)], cwd=str(cwd),
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _store(n=4):
+    return TraceStore.from_rank_traces(synthetic_rank_traces(n, reps=4),
+                                       {"x": n})
+
+
+def test_synthesize_defaults_to_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthesize(store=_store())
+
+
+def test_proxy_program_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
+    res = synthesize(store=_store(), device="cpu", out_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProxyProgram(res.source, res.proxy.module, res.merged, res.proxy.combos)
+
+
+def test_fit_defaults_to_cuda_and_raises_without_it(no_cuda):
+    t = np.array([[2.1e7, 3.3e5, 1.1e7, 8.2e3, 0., 0.]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        proxy_search.fit_batch(t)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        proxy_search.fit_batch_pgd(t)
+
+
+def test_state_builders_default_to_cuda_and_raise_without_it(no_cuda,
+                                                             tmp_path):
+    from repro_torch.core import blocks
+    from repro_torch.core.replay import init_replay_state
+    res = synthesize(store=_store(), device="cpu", out_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        blocks.init_state(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        blocks.state_from_numpy({"s": np.float32(0.0)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_replay_state(res.proxy.module, 0)
+    assert init_replay_state(res.proxy.module, 0, "cpu")["a"].device.type \
+        == "cpu"
+
+
+def test_synthesize_from_a_function_is_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="torch tracer"):
+        synthesize(lambda x: x, torch.zeros(2), device="cpu")
+
+
+def test_noise_replay_is_not_ported_yet(tmp_path):
+    from repro_torch.core import noise
+    res = synthesize(store=_store(), device="cpu", out_dir=tmp_path)
+    st = res.proxy.init_state(0)
+    assert noise.perturb(st, noise.LoweredNoise(0.1, 0.0, None, 4.0)) is st
+    st[noise.NOISE_KEY] = torch.zeros(2)
+    with pytest.raises(NotImplementedError):
+        noise.perturb(st, noise.LoweredNoise(0.1, 0.0, None, 4.0))

@@ -1,0 +1,241 @@
+"""Proxy-block kernels of the port: plain versions against the JAX
+reference's oracles, the wrappers' dispatch rules, and (on a CUDA card
+only) the CUDA kernels against their plain versions."""
+from __future__ import annotations
+
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import blocks as jax_blocks
+from repro.kernels.proxy_blocks import ref as jax_ref
+from repro_torch.kernels import build
+from repro_torch.kernels.proxy_blocks import ops, ref
+
+#: bf16 outputs of one turn: at most one bf16 ulp (8 significant bits) of
+#: the largest output, held per case against max|want|.  Over ``reps``
+#: turns the limit is sqrt(reps) times that: two correct versions that sum
+#: in different orders round a few outputs to neighbouring bf16 values each
+#: turn, and the orthogonal ``b`` of ``_mxu_inputs`` carries those
+#: differences forward without growing them, so they add like a random walk
+#: (the CUDA kernel against cuBLAS on an H100: 0.0244 at reps 32, max|want|
+#: 2.47).  On the CPU the port and the reference agree exactly.
+MXU_RTOL = 2.0 ** -7
+
+
+def _mxu_inputs(seed: int, scale: float = ref.MXU_SCALE, batch: tuple = ()):
+    """``a`` ~ U(-1, 1) and ``b`` an orthogonal matrix divided by ``scale``,
+    so each turn ``a <- bf16(a @ b * scale)`` keeps the norm of every row of
+    ``a``: the outputs stay O(1) over any number of turns, and a kernel that
+    runs too few turns, drops the scale or sums in bf16 misses by far more
+    than the tolerance."""
+    rng = np.random.RandomState(seed)
+    a = rng.uniform(-1, 1, batch + (ref.MM, ref.MM)).astype(np.float32)
+    q, r = np.linalg.qr(rng.standard_normal(batch + (ref.MM, ref.MM)))
+    q = q * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[..., None, :]
+    return a, (q / scale).astype(np.float32)
+
+
+def _bf16(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def assert_mxu_close(got, want, reps: int = 1) -> None:
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    top = float(np.abs(want).max())
+    assert top >= 0.5, f"outputs decayed to {top}: the comparison says nothing"
+    err = float(np.abs(got - want).max())
+    assert err <= max(reps, 1) ** 0.5 * MXU_RTOL * top, (err, top)
+
+
+@pytest.mark.parametrize("reps", [1, 5, 7, 32])
+def test_mxu_ref_matches_jax_ref(reps):
+    a, b = _mxu_inputs(reps)
+    want = jax_ref.mxu_ref(jnp.asarray(a, jnp.bfloat16),
+                           jnp.asarray(b, jnp.bfloat16), reps)
+    got = ref.mxu_ref(_bf16(a), _bf16(b), reps)
+    assert got.dtype == torch.bfloat16
+    assert_mxu_close(got.float().numpy(), want, reps)
+
+
+@pytest.mark.parametrize("reps", [1, 5])
+def test_mxu_ref_block_form_matches_repeated_mxu_vmem(reps):
+    """scale=1.0 is block 1 (b carries the 1/128): ``reps`` applications of
+    the reference's ``blocks.mxu_vmem``."""
+    a, b = _mxu_inputs(10 + reps, scale=1.0)
+    st = {"a": jnp.asarray(a, jnp.bfloat16), "b": jnp.asarray(b, jnp.bfloat16)}
+    for _ in range(reps):
+        st = jax_blocks.mxu_vmem(st)
+    got = ref.mxu_ref(_bf16(a), _bf16(b), reps, scale=1.0)
+    assert_mxu_close(got.float().numpy(), st["a"], reps)
+
+
+@pytest.mark.parametrize("mutant", ["two_turns", "bf16_sums", "no_scale"])
+def test_mxu_tolerance_rejects_wrong_arithmetic(mutant):
+    """The limit above fails each plausible kernel fault at reps=5."""
+    a, b = _mxu_inputs(5)
+    a, b = _bf16(a), _bf16(b)
+    want = ref.mxu_ref(a, b, 5).float().numpy()
+    if mutant == "two_turns":
+        got = ref.mxu_ref(a, b, 2)
+    elif mutant == "no_scale":
+        got = ref.mxu_ref(a, b, 5, scale=1.0)
+    else:           # each partial sum rounded to bf16
+        got = a
+        for _ in range(5):
+            acc = torch.zeros(ref.MM, ref.MM, dtype=torch.bfloat16)
+            for k in range(ref.MM):
+                acc = acc + (got[:, k:k + 1].float()
+                             * b[k:k + 1, :].float()).to(torch.bfloat16)
+            got = (acc.float() * ref.MXU_SCALE).to(torch.bfloat16)
+    with pytest.raises(AssertionError):
+        assert_mxu_close(got.float().numpy(), want, 5)
+
+
+def _stream_numpy(v: np.ndarray, reps: int) -> np.ndarray:
+    """The block's arithmetic in numpy f32: multiply, round, add, round."""
+    c, d = np.float32(0.999999), np.float32(1e-6)
+    for _ in range(reps):
+        v = v * c + d
+    return v
+
+
+@pytest.mark.parametrize("n,reps", [(2048, 3), (4096, 17), (32768, 5)])
+def test_stream_ref_matches_jax_ref(n, reps):
+    """Within one f32 rounding of 1.0 per turn of the JAX oracle.
+
+    XLA's CPU backend contracts ``v * 0.999999 + 1e-6`` into a fused
+    multiply-add, which rounds once per turn where the port (and its CUDA
+    kernel) rounds the product and the sum separately; the two drift apart
+    by up to one rounding per turn (at (4096, 17): 1.01e-6 absolute, 2.0e-6
+    relative, beyond the reference's rtol 1e-6).  The separately rounded
+    arithmetic is pinned exactly by the test below."""
+    v = np.random.RandomState(n + reps).uniform(0, 1, (n,)).astype(np.float32)
+    want = np.asarray(jax_ref.stream_ref(jnp.asarray(v), reps))
+    got = ref.stream_ref(torch.from_numpy(v), reps).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=reps * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("n,reps", [(2048, 3), (4096, 17), (32768, 5)])
+def test_stream_ref_rounds_multiply_and_add_separately(n, reps):
+    v = np.random.RandomState(n + reps).uniform(0, 1, (n,)).astype(np.float32)
+    got = ref.stream_ref(torch.from_numpy(v), reps).numpy()
+    np.testing.assert_array_equal(got, _stream_numpy(v, reps))
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    ops.reset_counts()
+    a, b = _mxu_inputs(0)
+    got = ops.mxu_iter(_bf16(a), _bf16(b), 3)
+    assert torch.equal(got, ref.mxu_ref(_bf16(a), _bf16(b), 3))
+    v = torch.rand(4096)
+    assert torch.equal(ops.stream_iter(v, 4), ref.stream_ref(v, 4))
+    assert ops.LAUNCHES == {"mxu_iter": 0, "stream_iter": 0}
+
+
+def test_batched_mxu_ref_is_per_item():
+    a, b = _mxu_inputs(3, scale=1.0, batch=(2,))
+    got = ops.mxu_iter(_bf16(a), _bf16(b), 2, scale=1.0)
+    for i in range(2):
+        want = ref.mxu_ref(_bf16(a[i]), _bf16(b[i]), 2, scale=1.0)
+        assert torch.equal(got[i], want)
+
+
+def test_non_cpu_non_cuda_tensors_raise():
+    """No fallback: only CPU tensors take the plain version."""
+    a = torch.empty(128, 128, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        ops.mxu_iter(a, a, 1)
+    with pytest.raises(ValueError):
+        ops.stream_iter(torch.empty(1024, device="meta"), 1)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """A CUDA launch builds first; without the toolkit that is an error."""
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "Path", _NoCudaPath)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+
+
+class _NoCudaPath(type(build.KERNELS_DIR)):
+    """A Path for which /usr/local/cuda/bin/nvcc does not exist."""
+
+    def exists(self, *args, **kwargs):
+        if str(self).endswith("bin/nvcc"):
+            return False
+        return super().exists(*args, **kwargs)
+
+
+def test_library_path_keys_on_source(tmp_path):
+    src = tmp_path / "proxy_blocks" / "kernel.cu"
+    src.parent.mkdir()
+    src.write_text("// one\n")
+    first = build.library_path(src)
+    src.write_text("// two\n")
+    assert build.library_path(src) != first
+    assert first.parent == build.BUILD_DIR
+
+
+def _need_cuda() -> None:
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py runs this there)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 5, 7, 32])
+def test_cuda_mxu_kernel_matches_plain(reps):
+    _need_cuda()
+    for scale in (ref.MXU_SCALE, 1.0):
+        a, b = _mxu_inputs(reps, scale)
+        a, b = _bf16(a).cuda(), _bf16(b).cuda()
+        got = ops.mxu_iter(a, b, reps, scale)
+        want = ref.mxu_ref(a, b, reps, scale)
+        assert_mxu_close(got.float().cpu().numpy(),
+                         want.float().cpu().numpy(), reps)
+        # the last turn alone, at the one-turn limit
+        last = ref.mxu_ref(ops.mxu_iter(a, b, reps - 1, scale), b, 1, scale)
+        assert_mxu_close(got.float().cpu().numpy(), last.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,reps", [(2048, 3), (4096, 17), (32768, 5)])
+def test_cuda_stream_kernel_is_bit_exact(n, reps):
+    _need_cuda()
+    v = torch.rand(n, generator=torch.Generator().manual_seed(n)).cuda()
+    assert torch.equal(ops.stream_iter(v, reps), ref.stream_ref(v, reps))
+
+
+@pytest.mark.cuda
+def test_cuda_misaligned_views_are_realigned():
+    """The kernels load 16-byte vectors; a contiguous view that starts off
+    a 16-byte boundary is copied first instead of faulting."""
+    _need_cuda()
+    big = torch.rand(4096 + 1, device="cuda")
+    v = big[1:]
+    assert v.is_contiguous() and v.data_ptr() % 16
+    assert torch.equal(ops.stream_iter(v, 3), ref.stream_ref(v, 3))
+    a, b = _mxu_inputs(0)
+    flat = torch.zeros(ref.MM * ref.MM + 1, dtype=torch.bfloat16, device="cuda")
+    flat[1:] = _bf16(a).cuda().flatten()
+    a_view = flat[1:].view(ref.MM, ref.MM)
+    assert a_view.data_ptr() % 16
+    b = _bf16(b).cuda()
+    assert torch.equal(ops.mxu_iter(a_view, b, 5),
+                       ops.mxu_iter(a_view.clone(), b, 5))
+
+
+@pytest.mark.cuda
+def test_cuda_empty_inputs_launch_nothing():
+    _need_cuda()
+    ops.reset_counts()
+    a = torch.empty(0, ref.MM, ref.MM, dtype=torch.bfloat16, device="cuda")
+    b = torch.empty(ref.MM, ref.MM, dtype=torch.bfloat16, device="cuda")
+    assert ops.mxu_iter(a, b, 3).shape == a.shape
+    assert ops.stream_iter(torch.empty(0, 1024, device="cuda"), 3).numel() == 0
+    assert ops.LAUNCHES == {"mxu_iter": 0, "stream_iter": 0}

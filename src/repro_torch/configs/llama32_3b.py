@@ -1,0 +1,17 @@
+"""llama3.2-3b [dense]: 28L d_model=3072 24H (GQA kv=8) d_ff=8192
+vocab=128256.  [hf:meta-llama/Llama-3.2-1B family]"""
+# copy of src/repro/configs/llama32_3b.py (the port imports nothing of repro)
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3.2-3b",
+    family="dense",
+    n_layers=28,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=128256,
+    head_dim=128,
+    rope_theta=500_000.0,
+)

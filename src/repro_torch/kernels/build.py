@@ -21,7 +21,8 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 #: every CUDA source of the port
-SOURCES = (KERNELS_DIR / "proxy_blocks" / "kernel.cu",)
+SOURCES = tuple(KERNELS_DIR / name / "kernel.cu"
+                for name in ("proxy_blocks", "flash_attention", "ssd"))
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

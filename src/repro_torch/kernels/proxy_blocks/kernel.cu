@@ -24,9 +24,9 @@
 //           at 67 TFLOP/s), though each element is a chain of 2 * reps
 //           dependent operations, so latency, not rate, limits a small n.
 //   Design: each thread loads one float4 once, loops reps times in
-//           registers and stores once.  __fmul_rn then __fadd_rn keep the
-//           multiply and the add separately rounded, as the reference does;
-//           nvcc would otherwise contract them into one FMA.
+//           registers and stores once.  __fmaf_rn rounds each turn once, as
+//           the reference's XLA program (which contracts the update into a
+//           fused multiply-add) does.
 //
 // C interface for ctypes: each launcher returns cudaGetLastError() after the
 // launch (0 on success).  Launches go on the caller's stream and allocate
@@ -114,10 +114,10 @@ stream_iter_kernel(const float4* __restrict__ v, float4* __restrict__ out,
   if (i >= n4) return;
   float4 x = v[i];
   for (int r = 0; r < reps; ++r) {
-    x.x = __fadd_rn(__fmul_rn(x.x, c), d);
-    x.y = __fadd_rn(__fmul_rn(x.y, c), d);
-    x.z = __fadd_rn(__fmul_rn(x.z, c), d);
-    x.w = __fadd_rn(__fmul_rn(x.w, c), d);
+    x.x = __fmaf_rn(x.x, c, d);
+    x.y = __fmaf_rn(x.y, c, d);
+    x.z = __fmaf_rn(x.z, c, d);
+    x.w = __fmaf_rn(x.w, c, d);
   }
   out[i] = x;
 }

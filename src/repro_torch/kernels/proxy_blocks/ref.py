@@ -7,13 +7,16 @@ the kernels to on the card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MM = 128
 #: the TPU kernel's contraction normalisation (``kernel.py:_mxu_iter_kernel``)
 MXU_SCALE = 1.0 / MM
-STREAM_MUL = 0.999999
-STREAM_ADD = 1e-6
+#: the stream update's constants as f32 values (the reference's jnp literals
+#: are weakly typed and round to f32 against an f32 ``v``)
+STREAM_MUL = float(np.float32(0.999999))
+STREAM_ADD = float(np.float32(1e-6))
 
 
 def mxu_ref(a: torch.Tensor, b: torch.Tensor, reps: int,
@@ -30,8 +33,16 @@ def mxu_ref(a: torch.Tensor, b: torch.Tensor, reps: int,
 
 
 def stream_ref(v: torch.Tensor, reps: int) -> torch.Tensor:
-    """``v <- v * 0.999999 + 1e-6``, ``reps`` times; a multiply then an add,
-    each rounded to f32 (no fused multiply-add)."""
+    """``v <- v * 0.999999 + 1e-6``, ``reps`` times, each turn rounded to
+    f32 once, as a fused multiply-add rounds it.
+
+    The reference's XLA program contracts the update into an FMA.  The
+    product of two f32 values is exact in f64 (48 significant bits), and for
+    2^-25 <= |v| < 2 the sum with the f32 constant 1e-6 spans at most 53
+    bits, so it is exact in f64 too: the one rounding to f32 is the FMA's,
+    and this is the reference bit for bit (the CPU tests pin it)."""
+    dt = v.dtype
+    w = v.double()
     for _ in range(int(reps)):
-        v = v * STREAM_MUL + STREAM_ADD
-    return v
+        w = (w * STREAM_MUL + STREAM_ADD).to(dt).double()
+    return w.to(dt)

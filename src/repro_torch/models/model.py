@@ -1,0 +1,74 @@
+"""Model registry: one dispatch point from ArchConfig to init and serve
+functions.
+
+The port of ``src/repro/models/model.py``.  ``build_forward(cfg, kind)``
+returns the prefill or decode step; ``init_params`` draws concrete weights
+on a device; ``params_from_numpy`` carries the reference's weights across
+value for value.  The training loss and the encoder-decoder family wait for
+later slices of the port and raise.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import init_tree, tree_map
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family is not ported yet (the "
+            "encdec slice of the port)")
+
+
+def param_tree(cfg: ArchConfig) -> dict:
+    _check_family(cfg)
+    return T.init_lm(cfg)
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+    """Concrete weights on ``device`` (default: the CUDA card; raises
+    without one).  The reference's init rule with torch's generator: the
+    structure, shapes and dtypes are the reference's, the values are not
+    (see ``layers.init_tree``)."""
+    return init_tree(param_tree(cfg), seed, resolve_device(device))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # torch.from_numpy refuses ml_dtypes' bfloat16: move the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                             .astype(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))      # a writable copy
+    return t.to(device)
+
+
+def params_from_numpy(tree, device=None) -> dict:
+    """The reference's parameter tree as numpy arrays (``jax.tree.map(
+    np.asarray, repro.models.model.init_params(cfg, seed))``) as the port's
+    tree of tensors on ``device``, value for value (bf16 included)."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, dev), tree)
+
+
+def build_forward(cfg: ArchConfig, kind: str) -> Callable:
+    """kind: 'prefill' | 'decode'."""
+    _check_family(cfg)
+    if kind == "loss":
+        raise NotImplementedError(
+            "the training loss is not ported yet (the training slice: "
+            "lm_loss with the flash-attention backward)")
+    return {"prefill": T.lm_prefill, "decode": T.lm_decode_step}[kind]
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
+    _check_family(cfg)
+    return T.init_lm_cache(cfg, batch, seq_len, resolve_device(device))

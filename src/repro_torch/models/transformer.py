@@ -1,0 +1,260 @@
+"""Decoder-only LM assembly: prefill and decode for the dense and SSM
+families.
+
+The port of ``src/repro/models/transformer.py`` for layer kinds ``g``
+(global attention), ``l`` (sliding window) and ``m`` (Mamba2).  Parameters
+and caches keep the reference's stacked layout: layers are grouped into the
+config's repeating unit, every leaf of ``params["unit"]`` has a leading
+``n_units`` dim, and remainder layers sit in the ``rest`` tuple.  Where the
+reference scans over the units, the port runs a Python loop that indexes
+them.  MoE layers, cross-attention (kind ``x``) and the training loss
+(``lm_loss``) wait for later slices of the port and raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
+from repro_torch.models.layers import (
+    Param, embed_lookup, embed_params, mlp_apply, mlp_params, rms_norm,
+    torch_dtype, unembed,
+)
+
+PORTED_KINDS = ("g", "l", "m")
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise for what this slice of the port does not run yet."""
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (the MoE slice of "
+            "the port, after serving and training)")
+    bad = sorted(set(cfg.layer_kinds()) - set(PORTED_KINDS))
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {bad} are not ported yet (cross-"
+            "attention and the VLM come in the cross-attention slice)")
+
+
+def unit_len(cfg: ArchConfig) -> int:
+    u = len(cfg.layer_pattern)
+    if cfg.n_experts:
+        u = _lcm(u, cfg.moe_every)
+    return min(u, cfg.n_layers)
+
+
+def _layer_param(cfg: ArchConfig, kind: str) -> dict:
+    d, dt = cfg.d_model, cfg.dtype
+    p: dict[str, Any] = {"ln1": Param((d,), ("embed",), scale=0.0, dtype="float32")}
+    if kind == "m":
+        p["mixer"] = S.ssm_params(d, expand=cfg.ssm_expand,
+                                  head_dim=cfg.ssm_head_dim,
+                                  n_state=cfg.ssm_state,
+                                  n_groups=cfg.ssm_groups, dtype=dt)
+    else:
+        p["attn"] = A.attn_params(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                  cfg.qk_norm, dt)
+    if cfg.d_ff:
+        p["ln2"] = Param((d,), ("embed",), scale=0.0, dtype="float32")
+        p["mlp"] = mlp_params(d, cfg.d_ff, dt)
+    return p
+
+
+def _stack(p: Any, n: int) -> Any:
+    """Prepend a ("layers", n) stacking dim to every Param leaf."""
+    if isinstance(p, dict):
+        return {k: _stack(v, n) for k, v in p.items()}
+    return Param((n,) + p.shape, ("layers",) + p.axes, p.scale, p.dtype)
+
+
+def init_lm(cfg: ArchConfig) -> dict:
+    """The Param tree of the LM (the reference's ``init_lm``)."""
+    check_ported(cfg)
+    u = unit_len(cfg)
+    n_units = cfg.n_layers // u
+    kinds = cfg.layer_kinds()
+    return {
+        "embed": embed_params(cfg.padded_vocab, cfg.d_model, cfg.dtype),
+        "final_norm": Param((cfg.d_model,), ("embed",), scale=0.0,
+                            dtype="float32"),
+        "unit": tuple(_stack(_layer_param(cfg, kinds[j]), n_units)
+                      for j in range(u)),
+        "rest": tuple(_layer_param(cfg, kinds[n_units * u + j])
+                      for j in range(cfg.n_layers % u)),
+    }
+
+
+def _layers(cfg: ArchConfig, tree: dict):
+    """(kind, unit index or None, slot, subtree) of every layer in order:
+    the stacked unit layers, then the remainder."""
+    u = unit_len(cfg)
+    n_units = cfg.n_layers // u
+    kinds = cfg.layer_kinds()
+    for i in range(n_units):
+        for j in range(u):
+            yield kinds[j], i, j, tree["unit"][j]
+    for j, sub in enumerate(tree["rest"]):
+        yield kinds[n_units * u + j], None, j, sub
+
+
+def _index(tree: Any, i: int | None) -> Any:
+    """Layer ``i`` of a stacked subtree (views, no copies)."""
+    if i is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, A.KVCache):
+        return A.KVCache(tree.k[i], tree.v[i])
+    return tree[i]
+
+
+def _write_back(dst: Any, i: int | None, src: Any) -> None:
+    """Store a layer's new cache into the stacked buffers, in place (a leaf
+    that is already a view of its slot was updated in place)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write_back(dst[k], i, src[k])
+        return
+    if isinstance(dst, A.KVCache):
+        _write_back(dst.k, i, src.k)
+        _write_back(dst.v, i, src.v)
+        return
+    slot = dst if i is None else dst[i]
+    if slot.data_ptr() != src.data_ptr():
+        slot.copy_(src)
+
+
+def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    x = embed_lookup(params["embed"], batch["tokens"])
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+
+
+def _ffn(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.d_ff:
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
+    return x
+
+
+def _cache_len(cfg: ArchConfig, kind: str, seq_len: int) -> int:
+    if kind == "l" and cfg.window and cfg.window < seq_len:
+        return cfg.window
+    return seq_len
+
+
+def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int, device) -> dict:
+    """Zero caches for decode at context length ``seq_len``."""
+    check_ported(cfg)
+    u = unit_len(cfg)
+    n_units = cfg.n_layers // u
+    kinds = cfg.layer_kinds()
+    dt = torch_dtype(cfg.dtype)
+
+    def one(kind: str, lead: tuple):
+        if kind == "m":
+            c = S.init_ssm_cache(batch, cfg.d_model, expand=cfg.ssm_expand,
+                                 head_dim=cfg.ssm_head_dim,
+                                 n_state=cfg.ssm_state,
+                                 n_groups=cfg.ssm_groups, dtype=dt,
+                                 device=device)
+            return {k: v.expand(lead + v.shape).contiguous()
+                    for k, v in c.items()}
+        shape = lead + (batch, _cache_len(cfg, kind, seq_len),
+                        cfg.n_kv_heads, cfg.hd)
+        return A.KVCache(torch.zeros(shape, dtype=dt, device=device),
+                         torch.zeros(shape, dtype=dt, device=device))
+
+    return {"unit": tuple(one(kinds[j], (n_units,)) for j in range(u)),
+            "rest": tuple(one(kinds[n_units * u + j], ())
+                          for j in range(cfg.n_layers % u))}
+
+
+def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
+    """Full-sequence forward building decode caches.
+
+    Returns (last-position logits (b, vocab), cache).  Attention caches hold
+    the full (or window-tail, in ring order) K/V in ``cfg.dtype``; SSM
+    caches hold the final state and the conv tail.  The cache has the
+    reference's stacked layout."""
+    check_ported(cfg)
+    x = embed_inputs(params, batch, cfg)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    dt = torch_dtype(cfg.dtype)
+    unit_caches: list[list] = [[] for _ in params["unit"]]
+    rest_caches = []
+    for kind, i, j, sub in _layers(cfg, params):
+        p = _index(sub, i)
+        hh = rms_norm(x, p["ln1"])
+        if kind == "m":
+            mix, cache = S.ssm_apply(p["mixer"], hh, head_dim=cfg.ssm_head_dim,
+                                     n_state=cfg.ssm_state,
+                                     n_groups=cfg.ssm_groups,
+                                     expand=cfg.ssm_expand,
+                                     chunk=cfg.ssm_chunk, return_cache=True)
+        else:
+            win = cfg.window if kind == "l" and cfg.window else None
+            mix, (k, v) = A.attention(p["attn"], hh, positions,
+                                      n_heads=cfg.n_heads,
+                                      n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                                      theta=cfg.rope_theta, window=win,
+                                      causal=True)
+            cl = _cache_len(cfg, kind, s)
+            if cl < s:
+                # ring layout: position p lives at slot p % window
+                k = torch.roll(k[:, s - cl:], s % cl, dims=1)
+                v = torch.roll(v[:, s - cl:], s % cl, dims=1)
+            cache = A.KVCache(k.to(dt), v.to(dt))
+        x = _ffn(cfg, p, x + mix)
+        (rest_caches if i is None else unit_caches[j]).append(cache)
+    x = rms_norm(x, params["final_norm"])
+    logits = unembed(x[:, -1:], params["embed"])[:, 0]
+    return logits, {"unit": tuple(_stack_caches(c) for c in unit_caches),
+                    "rest": tuple(rest_caches)}
+
+
+def _stack_caches(caches: list) -> Any:
+    first = caches[0]
+    if isinstance(first, A.KVCache):
+        return A.KVCache(torch.stack([c.k for c in caches]),
+                         torch.stack([c.v for c in caches]))
+    return {k: torch.stack([c[k] for c in caches]) for k in first}
+
+
+def lm_decode_step(params: dict, cache: dict, batch: dict, pos: int,
+                   cfg: ArchConfig):
+    """One new token against the cache.  batch = {tokens (b,1)}.
+
+    Returns (logits (b, vocab), cache); the cache's buffers are updated in
+    place (the reference returns new ones)."""
+    check_ported(cfg)
+    x = embed_inputs(params, batch, cfg)
+    for kind, i, j, sub in _layers(cfg, params):
+        p = _index(sub, i)
+        stacked = cache["unit"][j] if i is not None else cache["rest"][j]
+        c = _index(stacked, i)
+        h = rms_norm(x, p["ln1"])
+        if kind == "m":
+            mix, c = S.ssm_decode(p["mixer"], h, c, head_dim=cfg.ssm_head_dim,
+                                  n_state=cfg.ssm_state,
+                                  n_groups=cfg.ssm_groups,
+                                  expand=cfg.ssm_expand)
+        else:
+            win = cfg.window if kind == "l" and cfg.window else None
+            mix, c = A.decode_attention(p["attn"], h, c, pos,
+                                        n_heads=cfg.n_heads,
+                                        n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                                        theta=cfg.rope_theta, window=win)
+        _write_back(stacked, i, c)
+        x = _ffn(cfg, p, x + mix)
+    x = rms_norm(x, params["final_norm"])
+    logits = unembed(x[:, 0:1], params["embed"])[:, 0]
+    return logits, cache

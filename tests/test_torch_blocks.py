@@ -94,12 +94,18 @@ def test_kernel_blocks_are_one_wrapper_call(name, monkeypatch):
         st["b"] = _bf16(_mxu_inputs(0, scale=1.0)[1])
     out = blocks.repeat_block(name, 3, st, unroll=2)
     assert calls == [6]
-    want = st
-    for _ in range(6):
-        want = blocks.BLOCK_FNS[name](want)
     if name == "hbm_stream":
-        assert torch.equal(out["v"], want["v"])
+        # six applications of the reference's block as its replay compiles
+        # them (one fused multiply-add a turn), bit for bit; the port's
+        # eager body rounds twice and is only walked, on meta tensors
+        loop = jax.jit(lambda v: jax.lax.fori_loop(
+            0, 6, lambda i, s: jax_blocks.hbm_stream(s), {"v": v})["v"])
+        np.testing.assert_array_equal(out["v"].numpy(),
+                                      np.asarray(loop(st["v"].numpy())))
     else:
+        want = st
+        for _ in range(6):
+            want = blocks.BLOCK_FNS[name](want)
         assert_mxu_close(out["a"].float().numpy(), want["a"].float().numpy(),
                          6)
 

@@ -138,3 +138,24 @@ def test_noise_replay_is_not_ported_yet(tmp_path):
     st[noise.NOISE_KEY] = torch.zeros(2)
     with pytest.raises(NotImplementedError):
         noise.perturb(st, noise.LoweredNoise(0.1, 0.0, None, 4.0))
+
+
+def test_serve_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    from repro_torch.configs import get, smoke
+    from repro_torch.models.model import (
+        init_cache, init_params, params_from_numpy,
+    )
+    from repro_torch.serve.engine import ServeEngine
+    cfg = smoke(get("llama3.2-3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"w": np.zeros(2, np.float32)})
+    params = init_params(cfg, 0, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params)
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"

@@ -97,34 +97,59 @@ def test_mxu_tolerance_rejects_wrong_arithmetic(mutant):
 
 
 def _stream_numpy(v: np.ndarray, reps: int) -> np.ndarray:
-    """The block's arithmetic in numpy f32: multiply, round, add, round."""
+    """The block's arithmetic rounded twice a turn, in numpy f32: multiply,
+    round, add, round (what slice 1 of the port did, and the reference
+    does not)."""
     c, d = np.float32(0.999999), np.float32(1e-6)
     for _ in range(reps):
         v = v * c + d
     return v
 
 
-@pytest.mark.parametrize("n,reps", [(2048, 3), (4096, 17), (32768, 5)])
-def test_stream_ref_matches_jax_ref(n, reps):
-    """Within one f32 rounding of 1.0 per turn of the JAX oracle.
+def _stream_fma_numpy(v: np.ndarray, reps: int) -> np.ndarray:
+    """One rounding a turn: the exact f64 multiply-add of the f32 values,
+    rounded to f32 (a fused multiply-add)."""
+    c, d = np.float64(np.float32(0.999999)), np.float64(np.float32(1e-6))
+    for _ in range(reps):
+        v = (v.astype(np.float64) * c + d).astype(np.float32)
+    return v
 
-    XLA's CPU backend contracts ``v * 0.999999 + 1e-6`` into a fused
-    multiply-add, which rounds once per turn where the port (and its CUDA
-    kernel) rounds the product and the sum separately; the two drift apart
-    by up to one rounding per turn (at (4096, 17): 1.01e-6 absolute, 2.0e-6
-    relative, beyond the reference's rtol 1e-6).  The separately rounded
-    arithmetic is pinned exactly by the test below."""
+
+STREAM_SHAPES = [(2048, 3), (4096, 17), (32768, 5), (32768, 2000)]
+
+
+@pytest.mark.parametrize("n,reps", STREAM_SHAPES)
+def test_stream_ref_matches_jax_ref(n, reps):
+    """Bit for bit: XLA contracts ``v * 0.999999 + 1e-6`` into one fused
+    multiply-add, and the port's plain version rounds once a turn too."""
     v = np.random.RandomState(n + reps).uniform(0, 1, (n,)).astype(np.float32)
     want = np.asarray(jax_ref.stream_ref(jnp.asarray(v), reps))
+    got = ref.stream_ref(torch.from_numpy(v), reps)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,reps", STREAM_SHAPES)
+def test_stream_ref_matches_walked_block_under_fori_loop(n, reps):
+    """The reference's block body ``blocks.hbm_stream`` under ``fori_loop``
+    (the form its replay compiles) gives the same bits."""
+    import jax
+    v = np.random.RandomState(n + reps).uniform(0, 1, (n,)).astype(np.float32)
+    loop = jax.jit(lambda v: jax.lax.fori_loop(
+        0, reps, lambda i, st: jax_blocks.hbm_stream(st), {"v": v})["v"])
+    want = np.asarray(loop(jnp.asarray(v)))
     got = ref.stream_ref(torch.from_numpy(v), reps).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=reps * 2.0 ** -24)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("n,reps", [(2048, 3), (4096, 17), (32768, 5)])
 def test_stream_ref_rounds_multiply_and_add_separately(n, reps):
+    """It does not any more: the port rounds once a turn, as the reference
+    does, and the twice-rounded form differs from it at every shape here."""
     v = np.random.RandomState(n + reps).uniform(0, 1, (n,)).astype(np.float32)
     got = ref.stream_ref(torch.from_numpy(v), reps).numpy()
-    np.testing.assert_array_equal(got, _stream_numpy(v, reps))
+    np.testing.assert_array_equal(got, _stream_fma_numpy(v, reps))
+    assert not np.array_equal(got, _stream_numpy(v, reps))
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():

@@ -1,0 +1,278 @@
+"""Flash-attention and SSD kernels of the port: plain versions against the
+JAX reference's oracles on ``tests/test_kernels.py``'s sweeps, the
+wrappers' dispatch rules, and the limits that hold the CUDA kernels to
+their plain versions (``repro_torch/kernels/tolerance.py``): an emulation
+of the flash kernel's tile loop passes them, and the same loop with a
+dropped key tile or a stale maximum fails them.  The CUDA kernels
+themselves are tested in ``tests/test_torch_cuda.py``, which imports no JAX
+so that it runs on a card.
+
+Every case asserts that its reference output is O(1), so that no
+tolerance is vacuous."""
+from __future__ import annotations
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import (
+    flash_attention_fwd as jax_flash_fwd,
+)
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+from repro.kernels.ssd.ref import ssd_diag_ref as jax_ssd_diag_ref
+from repro_torch.kernels import tolerance
+from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+from repro_torch.kernels.ssd import ops as sops, ref as sref
+
+#: tests/test_kernels.py:16-36, with its tolerances
+FLASH_SWEEP = [
+    (1, 256, 4, 2, 64, None, True),
+    (2, 256, 2, 2, 128, 128, True),
+    (1, 384, 4, 1, 64, None, True),
+    (1, 512, 2, 1, 64, None, False),
+]
+FLASH_ATOL = {np.float32: 2e-5, "bfloat16": 2e-2}
+#: tests/test_kernels.py:39-57 (r = 12 is the reference wrapper's slabbing
+#: case) and its tolerance
+SSD_SWEEP = [
+    (1, 2, 32, 1, 4, 16, 16),
+    (2, 2, 16, 2, 8, 8, 32),
+    (1, 1, 64, 1, 12, 16, 16),
+]
+SSD_ATOL = 2e-4
+def _flash_inputs(seed, b, s, h, g, d):
+    rng = np.random.RandomState(seed)
+    return (rng.normal(0, 1, (b, s, h, d)).astype(np.float32),
+            rng.normal(0, 1, (b, s, g, d)).astype(np.float32),
+            rng.normal(0, 1, (b, s, g, d)).astype(np.float32))
+
+
+def _jax_flash_want(q, k, v, causal, win, dtype):
+    """The reference oracle in its own layout (heads expanded, (bh,s,d))."""
+    b, s, h, d = q.shape
+    r = h // k.shape[2]
+
+    def lay(x, rep):
+        x = np.repeat(x, rep, axis=2).transpose(0, 2, 1, 3)
+        return jnp.asarray(x.reshape(b * h, s, d), dtype)
+
+    out = jax_attention_ref(lay(q, 1), lay(k, r), lay(v, r), causal=causal,
+                            window=win)
+    return np.asarray(out, np.float32).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+
+
+def _torch(x: np.ndarray, dtype) -> torch.Tensor:
+    t = torch.from_numpy(x)
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("b,s,h,g,d,win,causal", FLASH_SWEEP)
+def test_flash_plain_matches_jax_oracle(b, s, h, g, d, win, causal, dtype):
+    q, k, v = _flash_inputs(s + d, b, s, h, g, d)
+    want = _jax_flash_want(q, k, v, causal, win,
+                           jnp.bfloat16 if dtype == "bfloat16" else jnp.float32)
+    got = fref.attention_ref(_torch(q, dtype), _torch(k, dtype),
+                             _torch(v, dtype), causal=causal, window=win)
+    assert got.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                         else torch.float32)
+    top = float(np.abs(want).max())
+    print(f"max|want| = {top:.3g}")
+    assert top > 0.3
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=FLASH_ATOL[dtype])
+
+
+def test_flash_plain_matches_pallas_kernel_interpreted():
+    """The reference's Pallas kernel itself (interpret mode on the CPU)."""
+    q, k, v = _flash_inputs(7, 1, 256, 4, 2, 64)
+    want = np.asarray(jax_flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=True, window=64))
+    got = fops.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal=True,
+                                   window=64).numpy()
+    assert np.abs(want).max() > 0.3
+    np.testing.assert_allclose(got, want, rtol=0, atol=FLASH_ATOL[np.float32])
+
+
+def test_flash_window_is_ignored_without_causal():
+    """As in the Pallas kernel: the window bounds only causal rows."""
+    q, k, v = (torch.from_numpy(x) for x in _flash_inputs(3, 1, 64, 2, 1, 16))
+    assert torch.equal(fref.attention_ref(q, k, v, causal=False, window=8),
+                       fref.attention_ref(q, k, v, causal=False))
+    assert not torch.equal(fref.attention_ref(q, k, v, window=8),
+                           fref.attention_ref(q, k, v))
+
+
+def _ssd_inputs(seed, b, c, q, g, r, p, n):
+    """tests/test_kernels.py's distributions."""
+    rng = np.random.RandomState(seed)
+    h = g * r
+    x = rng.normal(0, 1, (b, c, q, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.1, (b, c, q, h)).astype(np.float32)
+    adt = -rng.uniform(0.01, 0.5, (b, c, q, h)).astype(np.float32)
+    cum = np.cumsum(adt, axis=2, dtype=np.float32)
+    bm = rng.normal(0, 1, (b, c, q, g, n)).astype(np.float32)
+    cm = rng.normal(0, 1, (b, c, q, g, n)).astype(np.float32)
+    return x, dt, cum, bm, cm
+
+
+@pytest.mark.parametrize("in_dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("b,c,q,g,r,p,n", SSD_SWEEP)
+def test_ssd_plain_matches_jax_oracle(b, c, q, g, r, p, n, in_dtype):
+    """Both output dtypes: x's (the TPU kernel's contract) and f32 (what
+    ``ssd_chunked`` asks for, as the reference's einsum path keeps)."""
+    x, dt, cum, bm, cm = _ssd_inputs(q + r, b, c, q, g, r, p, n)
+    jdt = jnp.bfloat16 if in_dtype == "bfloat16" else jnp.float32
+    grouped = (jnp.asarray(x.reshape(b, c, q, g, r, p), jdt),
+               jnp.asarray(dt.reshape(b, c, q, g, r)),
+               jnp.asarray(cum.reshape(b, c, q, g, r)),
+               jnp.asarray(bm, jdt), jnp.asarray(cm, jdt))
+    want = jax_ssd_diag_ref(*grouped)
+    want_f32 = jax_ssd_diag_ref(grouped[0].astype(jnp.float32), *grouped[1:3],
+                                grouped[3].astype(jnp.float32),
+                                grouped[4].astype(jnp.float32))
+    ins = (_torch(x, in_dtype), torch.from_numpy(dt), torch.from_numpy(cum),
+           _torch(bm, in_dtype), _torch(cm, in_dtype))
+    got = sops.ssd_diag_block(*ins, r)
+    got_f32 = sops.ssd_diag_block(*ins, r, out_dtype=torch.float32)
+    assert got.dtype == ins[0].dtype and got_f32.dtype == torch.float32
+    top = float(np.abs(np.asarray(want_f32)).max())
+    print(f"max|want| = {top:.3g}")
+    assert top > 0.3
+    shape = (b, c, q, g * r, p)
+    np.testing.assert_allclose(got_f32.numpy(),
+                               np.asarray(want_f32).reshape(shape), rtol=0,
+                               atol=SSD_ATOL)
+    # x's dtype: the same f32 values rounded once (bf16: within one ulp)
+    tol = SSD_ATOL if in_dtype == np.float32 else 2.0 ** -8 * top
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32).reshape(shape),
+                               rtol=0, atol=tol)
+
+
+def test_ssd_plain_masks_the_exponent_before_exp():
+    """For j > i, cum_i - cum_j is positive and exp overflows; the masked
+    entries must give 0, not 0 * inf = NaN."""
+    x, dt, cum, bm, cm = _ssd_inputs(0, 1, 1, 16, 1, 2, 8, 8)
+    cum = (np.arange(16, dtype=np.float32)[None, None, :, None] * -20.0
+           ).repeat(2, axis=3)
+    y = sref.ssd_diag_ref(*(torch.from_numpy(a) for a in (x, dt, cum, bm, cm)),
+                          2)
+    assert torch.isfinite(y).all()
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    fops.reset_counts()
+    sops.reset_counts()
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(1, 1, 64, 2, 1, 16))
+    assert torch.equal(fops.flash_attention_fwd(q, k, v),
+                       fref.attention_ref(q, k, v))
+    ins = [torch.from_numpy(a) for a in _ssd_inputs(1, 1, 2, 8, 1, 2, 16, 16)]
+    assert torch.equal(sops.ssd_diag_block(*ins, 2), sref.ssd_diag_ref(*ins, 2))
+    assert fops.LAUNCHES == {"flash_fwd": 0}
+    assert sops.LAUNCHES == {"ssd_diag": 0}
+
+
+def test_non_cpu_non_cuda_tensors_raise():
+    """No fallback: only CPU tensors take the plain version."""
+    q = torch.empty(1, 64, 2, 16, device="meta")
+    with pytest.raises(ValueError):
+        fops.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1])
+    x = torch.empty(1, 1, 8, 2, 16, device="meta")
+    dt = torch.empty(1, 1, 8, 2, device="meta")
+    bm = torch.empty(1, 1, 8, 1, 16, device="meta")
+    with pytest.raises(ValueError):
+        sops.ssd_diag_block(x, dt, dt, bm, bm, 2)
+
+
+def _flash_kernel_emulation(q, k, v, *, causal=True, window=None, tile=64,
+                            mutant=None):
+    """The bf16 kernel's tile loop in PyTorch (kernel.cu::flash_fwd_bf16_
+    kernel): 64-key tiles in order, the running maximum m and sum l in f32,
+    P = exp(s - m) rounded to bf16 for P·V at the tile's running maximum,
+    the accumulator rescaled by exp(m_old - m_new) between tiles.
+
+    ``mutant`` plants a fault: "drop_tile" skips the tile of keys from s/2
+    for every row past it; "stale_max" does not rescale the accumulator when
+    the running maximum grows (l still is)."""
+    b, s, h, d = q.shape
+    t, g = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, g, h // g, d)
+    m = torch.full((b, g, h // g, s, 1), fref.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, g, h // g, s, d))
+    i = torch.arange(s)[:, None]
+    for k0 in range(0, t, tile):
+        kt, vt = k[:, k0:k0 + tile].float(), v[:, k0:k0 + tile]
+        sc = torch.einsum("bsgrd,btgd->bgrst", qg, kt) * (1 / math.sqrt(d))
+        j = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        seen = j <= i
+        if window is not None:
+            seen = seen & (j > i - window)
+        if mutant == "drop_tile" and k0 == s // 2:
+            seen = seen & (i < k0 + tile)
+        if causal:
+            sc = torch.where(seen, sc, fref.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if mutant != "stale_max":
+            acc = acc * corr
+        acc = acc + torch.einsum("bgrst,btgd->bgrsd",
+                                 p.to(torch.bfloat16).float(), vt.float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("window", [None, 512])
+def test_flash_limits_pass_the_kernels_loop_and_fail_its_mutants(window):
+    """At the depth of the Llama 3.2 3B prefill (s 2048, d 128; fewer
+    heads): late causal rows average about 2048 values, so their outputs
+    are about 30 times smaller than row 0's; a limit taken from max|plain|
+    would pass a kernel that drops 64 of their keys.  The per-element limit
+    passes the faithful tile loop and fails both planted faults by far."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _flash_inputs(11, 1, 2048, 4, 2, 128))
+    want = fref.attention_ref(q, k, v, causal=True, window=window)
+    rms = want.float().square().mean(-1).sqrt()
+    assert float(rms[0, 0].max()) > 10 * float(rms[0, -64:].mean())
+    worst = {}
+    for mutant in (None, "drop_tile", "stale_max"):
+        got = _flash_kernel_emulation(q, k, v, window=window, mutant=mutant)
+        worst[mutant] = tolerance.kernel_excess("flash_fwd", got, want)
+    print(f"window {window}: worst error over its limit {worst}")
+    assert worst[None] <= 0.5, "the faithful loop passes with room"
+    assert worst["drop_tile"] > 20 and worst["stale_max"] > 20
+
+
+@pytest.mark.parametrize("b,s,h,g,d,win,causal", FLASH_SWEEP)
+def test_flash_plain_rounds_p_like_the_kernel(b, s, h, g, d, win, causal):
+    """bf16: the plain version and the kernel's tile loop differ only in
+    the maximum at which P is rounded, within the kernel's limit (f32: see
+    test_flash_plain_matches_jax_oracle)."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _flash_inputs(s + d, b, s, h, g, d))
+    got = _flash_kernel_emulation(q, k, v, causal=causal, window=win)
+    want = fref.attention_ref(q, k, v, causal=causal, window=win)
+    assert float(want.float().abs().max()) > 0.3
+    assert tolerance.kernel_excess("flash_fwd", got, want) <= 1
+
+
+def test_tolerance_limit_is_per_element():
+    """ulps at |want| plus a share of the row's RMS; a zero row allows no
+    error."""
+    want = torch.tensor([[1.0, 0.5, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0]],
+                        dtype=torch.bfloat16)
+    lim = tolerance.limit(want, 2, 0.5)
+    rms = math.sqrt((1 + 0.25) / 4)
+    assert lim[0, 0] == pytest.approx(2 * 2 ** -7 + 0.5 * rms)
+    assert lim[0, 1] == pytest.approx(2 * 2 ** -8 + 0.5 * rms)
+    assert float(lim[1].max()) < 1e-30
+    assert tolerance.excess(want, want, 2, 0.5) == 0
+    assert tolerance.excess(want + 0.01, want, 0, 1e-3) > 1

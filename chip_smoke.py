@@ -36,6 +36,7 @@ sys.path.insert(0, str(ROOT / "src"))
 #: published peaks of one H100 SXM (NVIDIA data sheet, dense)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 #: δ̄ of the JAX reference on this trace (tests/test_torch_slice.py holds
@@ -129,6 +130,44 @@ def phase_build() -> None:
             if "Used" in line or "spill" in line:
                 print(f"  {line.strip()}")
     print(f"build: {secs:.2f} s")
+    sass_counts(libs)
+
+
+#: SASS instructions that show which engines a kernel uses: HGMMA (wgmma),
+#: HMMA (mma.sync and WMMA), LDGSTS (cp.async), UTMALDG (TMA loads)
+SASS_OPS = ("HGMMA", "HMMA", "LDGSTS", "UTMALDG")
+#: the redesigned kernels, by source directory and function name
+SASS_KERNELS = {"flash_attention": "flash_fwd_bf16_kernel",
+                "ssd": "ssd_diag_kernel"}
+
+
+def sass_counts(libs: dict) -> None:
+    """Print the count of SASS_OPS in each redesigned kernel's functions
+    (all template instances together), from ``cuobjdump -sass`` on the
+    built library."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for src, lib in libs.items():
+        func = SASS_KERNELS.get(src.parent.name)
+        if func is None:
+            continue
+        if not Path(tool).exists():
+            print(f"sass {func}: cuobjdump not found, instructions not "
+                  "counted")
+            continue
+        dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300).stdout
+        counts = dict.fromkeys(SASS_OPS, 0)
+        inside = False
+        for line in dump.splitlines():
+            if "Function :" in line:
+                inside = func in line
+            elif inside:
+                for op in SASS_OPS:
+                    counts[op] += len(re.findall(rf"\b{op}\b", line))
+        print(f"sass {func} ({src.relative_to(ROOT)}): " + ", ".join(
+            f"{op} {n}" for op, n in counts.items()))
 
 
 def mxu_inputs(rng, scale: float, batch: tuple = ()):
@@ -420,6 +459,7 @@ def phase_zoo_kernels(dev) -> dict:
         (1, 384, 4, 1, 64, None, True), (1, 512, 2, 1, 64, None, False),
         (2, 1024, 4, 2, 16, None, True), (2, 1024, 4, 2, 16, 16, True),
         (1, 77, 4, 2, 16, 16, True), (1, 1000, 2, 1, 64, None, False),
+        (2, 300, 4, 2, 32, None, True), (1, 200, 2, 2, 32, 64, True),
         (fl["b"], fl["s"], fl["h"], fl["g"], fl["d"], None, True),
         (fl["b"], fl["s"], fl["h"], fl["g"], fl["d"], 512, True)]
     for b, s, h, g, d, win, causal in flash_cases:
@@ -733,7 +773,9 @@ def bound(nbytes: float, flops: float, peak_flops: float) -> tuple:
 
 def zoo_timings(dev) -> dict:
     """flash_fwd and ssd_diag at the main path's shapes: kernel, plain
-    version, bound and (flash) PyTorch's SDPA as a yardstick."""
+    version, bound and (flash) PyTorch's SDPA as a yardstick.  Each kernel
+    is timed in turns with its yardstick (kernel, yardstick, kernel), and
+    its ``ms`` is the mean of its two turns."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.ssd import ops as sops, ref as sref
@@ -747,25 +789,45 @@ def zoo_timings(dev) -> dict:
     fb, fby = bound(2 * (2 * b * s * h * d + 2 * b * s * g * d),
                     4 * b * h * d * pairs, PEAK_BF16_FLOPS)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    turns = [cuda_ms(lambda: fops.flash_attention_fwd(q, k, v), 20),
+             cuda_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+             cuda_ms(lambda: fops.flash_attention_fwd(q, k, v), 20)]
+    print(f"timing flash_fwd in turns: kernel {turns[0]:.4f} ms, SDPA "
+          f"{turns[1]:.4f} ms, kernel {turns[2]:.4f} ms")
     flash = {
-        "ms": cuda_ms(lambda: fops.flash_attention_fwd(q, k, v), 20),
+        "ms": (turns[0] + turns[2]) / 2,
         "plain_ms": cuda_ms(lambda: fref.attention_ref(q, k, v), 5),
-        "bound_ms": fb, "bound_by": fby,
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20)}
+        "bound_ms": fb, "bound_by": fby, "library_ms": turns[1]}
+    flops = 4 * b * h * d * pairs
+    print(f"timing flash_fwd: {flops:.3g} FLOP, {flops / flash['ms'] / 1e9:.1f}"
+          f" TFLOP/s ({100 * fb / flash['ms']:.1f}% of the bound)")
     del q, k, v, qt, kt, vt
     sm = SSD_MAIN
     b, c, qq, g, r, p, n = (sm[k] for k in ("b", "c", "q", "g", "r", "p", "n"))
     ins = ssd_inputs(gen, b, c, qq, g, r, p, n, torch.bfloat16, dev)
     pairs = qq * (qq + 1) / 2
     h = g * r
-    sb, sby = bound(b * c * qq * (h * p * 2 + 2 * h * 4 + 2 * g * n * 2
-                                  + h * p * 4),
-                    2 * b * c * pairs * (h * p + g * n), PEAK_F32_FLOPS)
+    nbytes = b * c * qq * (h * p * 2 + 2 * h * 4 + 2 * g * n * 2 + h * p * 4)
+    y_flops, s_flops = 2 * b * c * pairs * h * p, 2 * b * c * pairs * g * n
+    # on the CUDA cores in f32 (the first design), and on the tensor cores
+    # as the kernel runs it: C B^T in bf16 (counted at the TF32 rate's
+    # share), and (S o L o dt) X as two TF32 products (a bf16 x is exact
+    # in TF32, so 3xTF32's third product vanishes)
+    f32b, f32by = bound(nbytes, y_flops + s_flops, PEAK_F32_FLOPS)
+    tc_flops = 2 * y_flops + s_flops * PEAK_TF32_FLOPS / PEAK_BF16_FLOPS
+    sb, sby = bound(nbytes, tc_flops, PEAK_TF32_FLOPS)
+    print(f"bound ssd_diag main shape: tensor cores {sb:.4f} ms ({sby}; "
+          f"operations {1e3 * tc_flops / PEAK_TF32_FLOPS:.4f} ms, bytes "
+          f"{1e3 * nbytes / PEAK_BYTES:.4f} ms), f32 CUDA cores {f32b:.4f} ms "
+          f"({f32by})")
+    turns = [cuda_ms(lambda: sops.ssd_diag_block(*ins, r, torch.float32), 20),
+             cuda_ms(lambda: sref.ssd_diag_ref(*ins, r, torch.float32), 5),
+             cuda_ms(lambda: sops.ssd_diag_block(*ins, r, torch.float32), 20)]
+    print(f"timing ssd_diag in turns: kernel {turns[0]:.4f} ms, plain "
+          f"{turns[1]:.4f} ms, kernel {turns[2]:.4f} ms")
     ssd = {
-        "ms": cuda_ms(lambda: sops.ssd_diag_block(*ins, r, torch.float32), 20),
-        "plain_ms": cuda_ms(lambda: sref.ssd_diag_ref(*ins, r, torch.float32),
-                            5),
+        "ms": (turns[0] + turns[2]) / 2, "plain_ms": turns[1],
         "bound_ms": sb, "bound_by": sby,
         # no single PyTorch call computes the decay-masked block
         "library_ms": None}

@@ -13,20 +13,61 @@
 //   and written, so the tensor cores bound it (104 us at 989 TFLOP/s, the
 //   bytes 40 us).
 //
-// Design (bf16, the serve path): one CTA of 4 warps per (b, head, 64-row
-//   q tile); each warp owns 16 query rows.  Q stays in registers as WMMA
-//   fragments; 64-key K and V tiles are staged through shared memory.  Per
-//   tile S = Q K^T (WMMA bf16 16x16x16, f32 accumulate: products of bf16
-//   values are exact in f32, so this is the reference's product up to the
-//   order of the sum), then a pair of lanes per row runs the online softmax
-//   in f32, and O += P V on WMMA with P rounded to bf16 -- as the JAX serve
-//   path does (models/flash.py: p.astype(v.dtype)), not as the Pallas
-//   kernel, which keeps P in f32.  The running sum l adds the f32 P.  The
-//   f32 accumulator lives in shared memory so that each row can be
-//   rescaled by exp(m_old - m_new) between tiles.  Tiles above the diagonal
-//   and behind the window are skipped by bounding the loop, as the Pallas
-//   kernel does; inside a tile the mask is the Pallas kernel's.  Simple and
-//   unpipelined (no TMA, no wgmma, no cp.async): the perf PR's work.
+// Design (bf16, the serve path): warp-specialised, in the shape Hopper's
+//   tensor cores want.  A CTA of three warpgroups covers a 128-row q tile
+//   of one (batch, head).  Warpgroup 0 is the producer: it gives up its
+//   registers (setmaxnreg) and one of its threads loads Q once and then
+//   keeps 128-key K and V tiles in flight with TMA, in a ring of kStages
+//   stages in shared memory, each stage guarded by a "full" mbarrier (TMA
+//   completes its bytes on it) and an "empty" one (the consumers arrive on
+//   it when done).  Warpgroups 1 and 2 are consumers, 64 q rows each.  Per
+//   tile, S = Q K^T is a wgmma with both operands in shared memory into
+//   f32 registers (products of bf16 values are exact in f32, so this is
+//   the reference's product up to the order of the sum); the online
+//   softmax runs in registers in the wgmma accumulator layout (a row's
+//   values lie in the 4 lanes of a quad: max and sum reduce over them with
+//   two shuffles); P = exp(s - m) at the tile's running maximum is rounded
+//   to bf16 -- as the JAX serve path does (models/flash.py:
+//   p.astype(v.dtype)) -- and packed straight into the A-operand registers
+//   of O += P V, a wgmma whose B operand V (keys x d, d contiguous, so
+//   MN-major) is read through the descriptor's transpose bit.  O, the
+//   running maximum m and each lane's share of the sum l stay in f32
+//   registers for the whole walk; nothing round-trips through shared
+//   memory.  Scores are scaled by 1/sqrt(d) in f32 (times log2 e, so that
+//   exp is one exp2) and masked to -1e30 (the Pallas kernel's value) only
+//   on tiles that cross the causal diagonal, the window's lower edge or t.  Tiles above the diagonal and behind the
+//   window are never loaded (tile_range, as the Pallas kernel's block
+//   skip).  The grid puts the q tile slowest and walks it from the last
+//   tile down, so the causal tiles with the most work start first and the
+//   short ones fill the tail.
+//
+//   Hazards, and what the design does about each:
+//   - TMA swizzle against the wgmma descriptor.  A bf16 row of d 128 is
+//     256 B, wider than the 128 B swizzle span, so every tile is loaded as
+//     d / 64 boxes ("atoms") of 64 columns, each its own 128-row region of
+//     128 B rows written with SWIZZLE_128B; at d 32 and 16 the row is 64 B
+//     and 32 B and the swizzle span shrinks to match (SWIZZLE_64B, _32B).
+//     The descriptor's layout type is the same swizzle (Swz below), its
+//     stride byte offset is 8 rows of the atom, and every region starts on
+//     a 1024 B boundary so the hardware's address-based XOR agrees between
+//     the two.  A K-major k-step of 16 columns inside an atom advances the
+//     start address by 32 B; an MN-major (V) k-step of 16 keys by 16 rows.
+//     P V at d 128 is one wgmma of n 128 across both atoms: the leading
+//     byte offset of its MN-major descriptor is the atom stride.  S = Q K^T
+//     is one wgmma of n 128 a k-step too: two of n 64 would read Q from
+//     shared memory twice.
+//   - cuTensorMapEncodeTiled is a driver-API function; it is reached
+//     through cudaGetDriverEntryPoint, so the library needs no -lcuda, and
+//     the maps are __grid_constant__ kernel parameters.  The maps are 4-D
+//     (d, heads, positions, batch): a box never crosses into the next
+//     batch, TMA zero-fills positions past s or t, and GQA is a coordinate.
+//   - setmaxnreg moves registers from the producer (40) to the consumers
+//     (232): the launcher checks that ptxas gave the kernel the 168 a thread that this needs and refuses
+//     to launch otherwise.
+//   - A fault that stalls a barrier would hang the card: every mbarrier
+//     wait traps after kWatchdog polls instead.
+//   - Build time: the loops over tiles are not unrolled, only those over
+//     registers.
 //
 // Design (f32, off the serve path of a bf16 model; the f32 smoke configs
 //   and the kernel sweeps run it): one thread per query row, 64 rows per
@@ -38,37 +79,25 @@
 // Pointers are 16-byte aligned and the tensors contiguous (ops.py copies
 // views that are not); ops.py launches nothing for empty inputs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
 constexpr float kNegInf = -1e30f;     // the Pallas kernel's mask value
-constexpr int kBQ = 64;               // query rows per CTA
-constexpr int kBK = 64;               // keys per tile (bf16 kernel)
-constexpr int kWarps = kBQ / 16;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = 64;               // query rows per CTA (f32 kernel)
 
-// Shared-memory layout of the bf16 kernel, in bytes; rows padded by 16
-// bytes against bank conflicts, every WMMA tile 32-byte aligned.
-template <int D>
-struct Layout {
-  static constexpr int kLdQ = D + 8;    // bf16, Q/K/V rows
-  static constexpr int kLdS = kBK + 4;  // f32 scores
-  static constexpr int kLdP = kBK + 8;  // bf16 probabilities
-  static constexpr int kLdO = D + 4;    // f32 accumulator
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kBQ * kLdQ * 2;
-  static constexpr int kV = kK + kBK * kLdQ * 2;
-  static constexpr int kS = kV + kBK * kLdQ * 2;
-  static constexpr int kP = kS + kBQ * kLdS * 4;
-  static constexpr int kO = kP + kBQ * kLdP * 2;
-  static constexpr int kBytes = kO + kBQ * kLdO * 4;
-};
+// ---- bf16 kernel: shape ----
+constexpr int kTile = 128;            // q rows per CTA, keys per KV tile
+constexpr int kStages = 2;            // K/V ring depth
+constexpr int kThreads = 384;         // producer + two consumer warpgroups
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr unsigned kWatchdog = 1u << 26;
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int t, int causal,
                                         int window) {
@@ -91,135 +120,354 @@ __device__ __forceinline__ void tile_range(int q0, int rows, int tile, int t,
   }
 }
 
+// Swizzle of a tile with d bf16 columns: the span (one shared-memory row
+// of an atom) is min(2d, 128) bytes.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      int s, int t, int h, int g, int causal, int window,
-                      float scale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::kP);
-  float* sO = reinterpret_cast<float*>(smem + L::kO);
+struct Swz {
+  static constexpr int kBytes = 2 * D < 128 ? 2 * D : 128;
+  static constexpr int kCols = kBytes / 2;           // columns per atom
+  static constexpr int kAtoms = D / kCols;
+  static constexpr int kAtomBytes = kTile * kBytes;  // one 128-row atom
+  static constexpr int kTileBytes = kAtoms * kAtomBytes;
+  // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
+  static constexpr uint64_t kDescLayout = kBytes == 128 ? 1 : kBytes == 64 ? 2 : 3;
+};
 
-  const int q0 = blockIdx.x * kBQ;
-  const int head = blockIdx.y;
-  const long long bi = blockIdx.z;
-  const int kvh = head / (h / g);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  constexpr int kVec = D / 8;           // 16-byte vectors per row
+// Shared memory of the bf16 kernel, in bytes from a 1024-aligned base.
+template <int D>
+struct Smem {
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + Swz<D>::kTileBytes;
+  static constexpr int kV = kK + kStages * Swz<D>::kTileBytes;
+  static constexpr int kBar = kV + kStages * Swz<D>::kTileBytes;
+  // q_full, then full[kStages], then empty[kStages]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+};
 
-  for (int i = threadIdx.x; i < kBQ * kVec; i += kThreads) {
-    const int row = i / kVec, c = i % kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + row < s)
-      val = reinterpret_cast<const uint4*>(
-          q + ((bi * s + q0 + row) * h + head) * D)[c];
-    *reinterpret_cast<uint4*>(sQ + row * L::kLdQ + c * 8) = val;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (unsigned spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == kWatchdog) __trap();
   }
-  float* sOw = sO + warp * 16 * L::kLdO;
-  for (int i = lane; i < 16 * L::kLdO; i += 32) sOw[i] = 0.f;
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+#define R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define R8(i) R4(i), R4(i + 4)
+
+// d[0:64] (+)= A (64x16, shared, K-major) * B (16x128, shared, K-major).
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0:N/2] += A (64x16, registers) * B (16xN, shared, MN-major: the
+// transpose bit).  N = 16, 32, 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_t(float* d, const uint32_t* a,
+                                           uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<16>(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "1;\n}\n"
+      : R8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<32>(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<64>(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_t<128>(float* d, const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef R8
+#undef R4
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      bf16* __restrict__ out, int s, int t, int h, int g,
+                      int causal, int window, float scale) {
+  using W = Swz<D>;
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;   // heaviest first
+  const int head = blockIdx.x;
+  const int bi = blockIdx.y;
+  const int wg = threadIdx.x / 128;
+  int lo, hi;
+  tile_range(q0, kTile, kTile, t, causal, window, &lo, &hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 256);          // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(fq[kk], sQ + warp * 16 * L::kLdQ + kk * 16, L::kLdQ);
-
-  // lanes 2r and 2r+1 share query row r of this warp's 16
-  const int row = lane >> 1, half = lane & 1;
-  const int qpos = q0 + warp * 16 + row;
-  float* srow = sS + (warp * 16 + row) * L::kLdS;
-  bf16* prow = sP + (warp * 16 + row) * L::kLdP;
-  float* orow = sOw + row * L::kLdO;
-  float m_run = kNegInf, l_run = 0.f;
-
-  int lo, hi;
-  tile_range(q0, kBQ, kBK, t, causal, window, &lo, &hi);
-  for (int jt = lo; jt < hi; ++jt) {
-    const int k0 = jt * kBK;
-    __syncthreads();                     // every warp is done with the last tile
-    for (int i = threadIdx.x; i < kBK * kVec; i += kThreads) {
-      const int r = i / kVec, c = i % kVec;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (k0 + r < t) {
-        const long long off = ((bi * t + k0 + r) * g + kvh) * D;
-        kv = reinterpret_cast<const uint4*>(k + off)[c];
-        vv = reinterpret_cast<const uint4*>(v + off)[c];
+  if (wg == 0) {
+    // ---- producer: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      const int kvh = head / (h / g);
+      mbar_expect_tx(q_full, W::kTileBytes);
+      for (int a = 0; a < W::kAtoms; ++a)
+        tma_load(smem + L::kQ + a * W::kAtomBytes, &tq, q_full, a * W::kCols,
+                 head, q0, bi);
+      for (int jt = lo, i = 0; jt < hi; ++jt, ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[st], (i / kStages - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * W::kTileBytes);
+        for (int a = 0; a < W::kAtoms; ++a) {
+          const int off = st * W::kTileBytes + a * W::kAtomBytes;
+          tma_load(smem + L::kK + off, &tk, &full[st], a * W::kCols, kvh,
+                   jt * kTile, bi);
+          tma_load(smem + L::kV + off, &tv, &full[st], a * W::kCols, kvh,
+                   jt * kTile, bi);
+        }
       }
-      *reinterpret_cast<uint4*>(sK + r * L::kLdQ + c * 8) = kv;
-      *reinterpret_cast<uint4*>(sV + r * L::kLdQ + c * 8) = vv;
     }
-    __syncthreads();
+  } else {
+    // ---- consumers: 64 q rows per warpgroup ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int quad = tid % 4;
+    const int qw0 = q0 + 64 * c;                         // warpgroup's rows
+    const int qpos0 = qw0 + 16 * (tid / 32) + (tid % 32) / 4;
+    const int qpos1 = qpos0 + 8;
+    constexpr uint32_t kSbo = 8 * W::kBytes;             // 8 rows of an atom
+    const uint32_t sq = smem_u32(smem + L::kQ) + 64 * c * W::kBytes;
 
+    // accumulator layout (wgmma m64nN): value 4j + e is row qpos0 (e < 2)
+    // or qpos1 (e >= 2), column 8j + 2 quad + (e & 1)
+    float sacc[2 * kTile / 4];
+    float oacc[D / 2];
+    uint32_t pa[kTile / 4];                              // P as bf16 pairs
 #pragma unroll
-    for (int n = 0; n < kBK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+    for (int j = 0; j < D / 2; ++j) oacc[j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2 * kTile / 4; ++j) sacc[j] = 0.f;
+    // scores in log2 units: exp(x - m) = exp2(x log2e - m log2e), one FMUL
+    // and one MUFU.EX2 an element (expf costs a range reduction more)
+    const float sl = scale * 1.4426950408889634f;
+    float m0 = kNegInf, m1 = kNegInf;
+    float l0 = 0.f, l1 = 0.f;                            // this lane's share
+
+    mbar_wait(q_full, 0);
+    for (int jt = lo, i = 0; jt < hi; ++jt, ++i) {
+      const int st = i % kStages;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      const int k0 = jt * kTile;
+      const uint32_t sk = smem_u32(smem + L::kK + st * W::kTileBytes);
+      const uint32_t sv = smem_u32(smem + L::kV + st * W::kTileBytes);
+
+      // S = Q K^T, one wgmma of n 128 a k-step
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-        wmma::load_matrix_sync(fk, sK + n * 16 * L::kLdQ + kk * 16, L::kLdQ);
-        wmma::mma_sync(acc, fq[kk], fk, acc);
+        const uint32_t off = (kk * 16 / W::kCols) * W::kAtomBytes +
+                             (kk * 16 % W::kCols) * 2;
+        const uint64_t dq = make_desc(sq + off, 16, kSbo, W::kDescLayout);
+        wgmma_ss_n128(sacc, dq, make_desc(sk + off, 16, kSbo, W::kDescLayout),
+                      kk > 0);
       }
-      wmma::store_matrix_sync(sS + warp * 16 * L::kLdS + n * 16, acc, L::kLdS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
+      wgmma_commit();
+      wgmma_wait_all();
 
-    float sc[kBK / 2];
-    float mx = kNegInf;
+      // online softmax in f32, a row's values in the 4 lanes of a quad
+      const bool masked =
+          k0 + kTile > t ||
+          (causal && (k0 + kTile - 1 > qw0 ||
+                      (window > 0 && k0 <= qw0 + 63 - window)));
+      float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) {
-      const int c = half + 2 * i;
-      const float x = srow[c] * scale;
-      sc[i] = visible(qpos, k0 + c, t, causal, window) ? x : kNegInf;
-      mx = fmaxf(mx, sc[i]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float corr = expf(m_run - m_new);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) {
-      const float p = expf(sc[i] - m_new);
-      sum += p;
-      prow[half + 2 * i] = __float2bfloat16_rn(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l_run = l_run * corr + sum;
-    m_run = m_new;
-    for (int c = half; c < D; c += 2) orow[c] *= corr;
-    __syncwarp();
-
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp[kBK / 16];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wmma::load_matrix_sync(fp[kk], sP + warp * 16 * L::kLdP + kk * 16, L::kLdP);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sOw + n * 16, L::kLdO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, sV + kk * 16 * L::kLdQ + n * 16, L::kLdQ);
-        wmma::mma_sync(acc, fp[kk], fv, acc);
+      for (int j = 0; j < 2 * kTile / 4; ++j) {
+        float x = sacc[j] * sl;
+        if (masked &&
+            !visible((j & 2) ? qpos1 : qpos0, k0 + 8 * (j / 4) + 2 * quad + (j & 1),
+                     t, causal, window))
+          x = kNegInf;
+        sacc[j] = x;
+        if (j & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
       }
-      wmma::store_matrix_sync(sOw + n * 16, acc, L::kLdO, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float corr0 = exp2f(m0 - mn0), corr1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2 * kTile / 4; j += 2) {
+        const float mn = (j & 2) ? mn1 : mn0;
+        const float p0 = exp2f(sacc[j] - mn), p1 = exp2f(sacc[j + 1] - mn);
+        if (j & 2) sum1 += p0 + p1; else sum0 += p0 + p1;
+        // the accumulator pair (j, j + 1) is the A-fragment register j / 2
+        pa[j / 2] = pack_bf16(p0, p1);
+      }
+      l0 = l0 * corr0 + sum0;
+      l1 = l1 * corr1 + sum1;
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) oacc[j] *= (j & 2) ? corr1 : corr0;
 
-  if (qpos < s) {
-    bf16* o = out + ((bi * s + qpos) * h + head) * D;
-    const float den = fmaxf(l_run, 1e-30f);
-    for (int c = half; c < D; c += 2) o[c] = __float2bfloat16_rn(orow[c] / den);
+      // O += P V, 16 keys a step; V is MN-major (the transpose bit)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        const uint32_t vk = sv + kk * 16 * W::kBytes;
+        wgmma_rs_t<D>(oacc, pa + 4 * kk,
+                      make_desc(vk, W::kAtomBytes, kSbo, W::kDescLayout));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      mbar_arrive(&empty[st]);
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    bf16* o0 = out + ((static_cast<long long>(bi) * s + qpos0) * h + head) * D;
+    bf16* o1 = o0 + 8LL * h * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * quad;
+      if (qpos0 < s)
+        *reinterpret_cast<uint32_t*>(o0 + col) =
+            pack_bf16(oacc[4 * j] / den0, oacc[4 * j + 1] / den0);
+      if (qpos1 < s)
+        *reinterpret_cast<uint32_t*>(o1 + col) =
+            pack_bf16(oacc[4 * j + 2] / den1, oacc[4 * j + 3] / den1);
+    }
   }
 }
 
@@ -311,38 +559,104 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (d, heads, positions, batch) of a contiguous bf16 tensor
+// (batch, positions, heads, d), read in boxes of one atom's columns by
+// kTile positions of one head.
+template <int D>
+bool make_map(CUtensorMap* map, const void* ptr, int heads, int len, int b) {
+  using W = Swz<D>;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads,
+                                 2ull * D * heads * len};
+  const cuuint32_t box[4] = {W::kCols, 1, kTile, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = W::kBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : W::kBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
+                int s, int t, int h, int g, int causal, int window, float scale,
+                cudaStream_t stream) {
+  static bool set = false;
+  if (!set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<D>::kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    // setmaxnreg hands the producer's registers to the consumers: the
+    // kernel must start with enough for both, or the consumers would wait
+    // for registers forever
+    cudaFuncAttributes attr;
+    e = cudaFuncGetAttributes(&attr, flash_fwd_bf16_kernel<D>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (attr.numRegs * kThreads < kProducerRegs * 128 + kConsumerRegs * 256)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    set = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!make_map<D>(&tq, q, h, s, b) || !make_map<D>(&tk, k, g, t, b) ||
+      !make_map<D>(&tv, v, g, t, b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(h, b, (s + kTile - 1) / kTile);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), s, t, h, g, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int s, int t, int h, int g, int is_bf16, int causal, int window,
            float scale, cudaStream_t stream) {
-  const dim3 grid((s + kBQ - 1) / kBQ, h, b);
-  if (is_bf16) {
-    static bool set = false;
-    if (!set) {
-      cudaError_t e = cudaFuncSetAttribute(
-          flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          Layout<D>::kBytes);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      set = true;
-    }
-    flash_fwd_bf16_kernel<D><<<grid, kThreads, Layout<D>::kBytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), s, t, h, g,
-        causal, window, scale);
-  } else {
-    static bool set = false;
-    if (!set) {
-      cudaError_t e = cudaFuncSetAttribute(
-          flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          f32_smem_bytes<D>());
-      if (e != cudaSuccess) return static_cast<int>(e);
-      set = true;
-    }
-    flash_fwd_f32_kernel<D><<<grid, kBQ, f32_smem_bytes<D>(), stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), s, t, h, g,
-        causal, window, scale);
+  if (is_bf16)
+    return launch_bf16<D>(q, k, v, out, b, s, t, h, g, causal, window, scale,
+                          stream);
+  static bool set = false;
+  if (!set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        f32_smem_bytes<D>());
+    if (e != cudaSuccess) return static_cast<int>(e);
+    set = true;
   }
+  const dim3 grid((s + kBQ - 1) / kBQ, h, b);
+  flash_fwd_f32_kernel<D><<<grid, kBQ, f32_smem_bytes<D>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), s, t, h, g,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,28 +11,52 @@
 //   (b,c,q,g,n), with h = g * r.
 //
 // Bound: at the Mamba2 2.7B prefill shape (b 4, c 8, q 256, g 1, h 80,
-//   p 64, n 128) the causal (scores o L) (dt X) products are
-//   2*b*c*h*q*q*p/2 = 1.07e10 FLOP in f32 (plus 2.7e8 for C B^T), 160 us
-//   at the 67 TFLOP/s f32 rate; the bytes (x and B/C in bf16, dt and cum
-//   in f32, an f32 y: about 261 MB) take 78 us.  So f32 operations bound
-//   it, and the design stays on the CUDA cores in f32, like the reference.
+//   p 64, n 128) the causal (S o L)(dt X) products are 2*b*c*h*q*q*p/2 =
+//   1.07e10 FLOP (plus 2.7e8 for C B^T).  On the tensor cores in 3xTF32
+//   that is 3 x 1.07e10 at 495 TFLOP/s, 65 us (two products here: 43 us);
+//   the bytes (x and B/C in bf16, dt and cum in f32, an f32 y: about
+//   261 MB) take 78 us.  So the bytes bound this design (on the CUDA cores in f32 the operations did:
+//   160 us at 67 TFLOP/s).
 //
-// Design: shared memory is the constraint.  One (b, c, g) program's
-//   C B^T tile at q = 256 is 256 KiB of f32, more than a CTA's 227 KiB,
-//   and the TPU kernel's r x q x q masked-score block is r times that.  So
-//   a CTA takes one 64-row block I of the chunk and a slice of 16 heads of
-//   one group.  It computes S = C_I B_J^T once for all keys J <= I (64 x
-//   at most 256 f32, 65 KiB) and keeps it, since S is shared by the r
-//   heads of the group; then for each head it walks 64-key blocks J,
-//   builds M = S o exp(cum_i - cum_j) only where i >= j (the exponent is
-//   masked before exp: for i < j it is positive and can overflow, and
-//   0 * inf is NaN where the reference's where selects 0), stages
-//   dt_j * X_j, and accumulates Y_I += M (dt X)_J in registers, 4 rows by
-//   4 columns per thread.  Blocks with j > i are never visited.  The JAX
-//   wrapper's slabs of r <= 8 heads are a VMEM limit, not part of the
-//   function; here the head slices are 16 wide, so S is recomputed
-//   r / 16 times (5 at r = 80, 13% more work) to give the card 4 x as
-//   many CTAs.  Plain SIMT f32; tensor cores (3xTF32) are later work.
+// Design: both products on the tensor cores (mma.sync), with f32 accuracy.
+//   - S = C B^T.  With bf16 inputs (the serve path) it is a bf16 mma with
+//     f32 accumulation: products of bf16 values are exact in f32, so this
+//     is the reference's f32 product up to the order of the sum.  With f32
+//     inputs (the smoke configs) it is 3xTF32: each operand split into a
+//     TF32 hi part and the TF32 rounding of its remainder, lo, and the sum
+//     hi.hi + hi.lo + lo.hi (the dropped lo.lo is below 2^-21 of a term).
+//   - Y = (S o L)(dt X), computed as ((S o L) o dt_j) X.  The left factor
+//     is an f32 value, split into hi + lo; a bf16 x is exact in TF32, so
+//     3xTF32's hi.lo term vanishes and two mma m16n8k8 TF32 products,
+//     lo.x + hi.x, give the f32 product to about 2^-22 of each term (an
+//     f32 x takes all three).  Folding dt_j into the left factor computes
+//     it once per element (the right factor is read by the four warps that
+//     share a key half) and rounds M dt_j where the reference rounds dt x:
+//     the same terms to an ulp.  A single TF32 or bf16 rounding of M would miss the 2^-14
+//     row-RMS floor of KERNEL_TOL (tests/test_torch_kernels_zoo.py shows
+//     it).  The exponent is masked to -inf before exp (for i < j it is
+//     positive and can overflow, and 0 * inf is NaN where the reference's
+//     where selects 0).
+//   - Work split: a CTA of 8 warps takes one 64-row block I of the chunk
+//     and a slice of 20 heads of one group.  It computes S_I = C_I B^T for
+//     all keys j < end of I once into shared memory (64 x 256 f32, 65 KiB)
+//     and keeps it for every head of the slice, since the r heads of a
+//     group share it; the heads are sliced 20 wide so that the card gets
+//     r / 20 times as many CTAs, at the cost of computing S r / 20 times
+//     (its loads unrolled so that they overlap).  Warp w owns rows
+//     16 (w % 4) .. +16 of I and half of each 64-key block J (w / 4):
+//     its M fragments come straight from S, cum and exp in registers, each
+//     element computed by exactly one thread, and the two halves' partial
+//     Y are added through shared memory once per head.
+//   - Copies overlap products: x_J, dt_J and cum_J of the next (head, J)
+//     step stream in with cp.async into the next of kStages stages while
+//     the warps multiply this one (the first stage's copy overlaps S); one
+//     __syncthreads a step both publishes a stage and frees the last one.
+//   - Balance: blocks J > I are never visited, so block I does I + 1 steps
+//     a head; the grid puts I slowest and walks it from the last (most
+//     work) down, so the heavy CTAs start first and the light ones fill
+//     the tail.  Shared memory (103 KiB with bf16 x at p 64) lets 2 CTAs of
+//     8 warps share an SM.
 //
 // C interface for ctypes: the launcher returns cudaGetLastError() after the
 // launch (0 on success), on the caller's stream, allocating nothing.  The
@@ -41,6 +65,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 typedef __nv_bfloat16 bf16;
 
@@ -48,150 +73,317 @@ namespace {
 
 constexpr int kBI = 64;          // query rows per CTA
 constexpr int kBJ = 64;          // key rows per step
-constexpr int kThreads = 256;
-constexpr int kHeads = 16;       // heads per CTA
+constexpr int kThreads = 256;    // 8 warps: 4 row groups x 2 key halves
+constexpr int kHeads = 20;       // heads per CTA
+constexpr int kStages = 2;       // x/dt/cum staging ring depth
 constexpr int kMaxQ = 256;       // chunk length
 constexpr int kMaxN = 128;       // state size
-constexpr int kLdS = kMaxQ + 4;  // f32 row strides, padded against conflicts
-constexpr int kLdBt = kBJ + 4;
-constexpr int kLdM = kBJ + 4;
+constexpr int kLdS = kMaxQ + 4;  // f32 row stride of S, against conflicts
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// Shared memory, in bytes: S, kStages stages of (x_J, dt_J, cum_J), and the
+// buffer in which the second key half hands its partial Y to the first.
+template <typename T, int P>
+struct Smem {
+  // x rows padded so that the B-fragment reads of a warp hit distinct banks
+  static constexpr int kLdX = sizeof(T) == 2 ? P + 16 : P + 8;
+  static constexpr int kXBytes = kBJ * kLdX * sizeof(T);   // 16-byte multiple
+  static constexpr int kStageBytes = kXBytes + 2 * kBJ * 4;
+  static constexpr int kLdR = P + 4;
+  static constexpr int kS = 0;
+  static constexpr int kStage = kS + kBI * kLdS * 4;
+  static constexpr int kRed = kStage + kStages * kStageBytes;
+  static constexpr int kBytes = kRed + kBI * kLdR * 4;
+};
 
-// floats of shared memory: S, then a region that holds C_I and B_J^T while
-// S is built and M and dt X afterwards, then the block's cum rows
-constexpr int kRegion1 = kBI * (kMaxN + 4) + kMaxN * kLdBt;
-constexpr int kRegion2 = kBI * kLdM + kBJ * (64 + 4);
-constexpr int kRegion = kRegion1 > kRegion2 ? kRegion1 : kRegion2;
-constexpr int kSmemFloats = kBI * kLdS + kRegion + 2 * kBI;
-constexpr int kSmemBytes = kSmemFloats * 4;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes global -> shared, asynchronously; zero-filled if !in
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most kStages - 2 groups are in flight
+__device__ __forceinline__ void cp_async_wait_step() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2) : "memory");
+}
+
+// c (16x8 f32) += a (16x16 bf16) b (16x8 bf16)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c (16x8 f32) += a (16x8 tf32) b (8x8 tf32)
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = hi + lo, hi its TF32 rounding and lo the TF32 rounding of the rest
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// c += a b with b exact in TF32 (bf16 values): the low product first
+__device__ __forceinline__ void mma_2xtf32(float* c, const uint32_t* ahi,
+                                           const uint32_t* alo,
+                                           const uint32_t* b) {
+  mma_tf32(c, alo, b);
+  mma_tf32(c, ahi, b);
+}
+
+// c += a b in 3xTF32: the two small cross products first, then hi.hi
+__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi,
+                                           const uint32_t* alo,
+                                           const uint32_t* bhi,
+                                           const uint32_t* blo) {
+  mma_tf32(c, alo, bhi);
+  mma_tf32(c, ahi, blo);
+  mma_tf32(c, ahi, bhi);
+}
+
+// elements k and k + 1 (k even) of a bf16 row of n, zero past n or without
+// a row; one 32-bit load when n is even (the row is then 4-byte aligned)
+__device__ __forceinline__ uint32_t ld_pair(const bf16* row, int k, int n) {
+  if (row == nullptr) return 0u;
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(row);
+  if ((n & 1) == 0)
+    return k < n ? __ldg(reinterpret_cast<const unsigned int*>(u + k)) : 0u;
+  const uint32_t lo = k < n ? __ldg(u + k) : 0u;
+  const uint32_t hi = k + 1 < n ? __ldg(u + k + 1) : 0u;
+  return lo | (hi << 16);
+}
+__device__ __forceinline__ float ld_one(const float* row, int k, int n) {
+  return row != nullptr && k < n ? __ldg(row + k) : 0.f;
+}
 
 template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_diag_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ cum, const T* __restrict__ bm,
                 const T* __restrict__ cm, void* __restrict__ y, int out_bf16,
-                int q, int h, int g, int n, int n_iblk) {
-  extern __shared__ __align__(16) float sm[];
-  float* sS = sm;                            // kBI x kLdS
-  float* region = sS + kBI * kLdS;
-  float* sC = region;                        // kBI x (n + 4)
-  const int ldC = n + 4;
-  float* sBt = sC + kBI * ldC;               // n x kLdBt
-  float* sM = region;                        // kBI x kLdM
-  constexpr int kLdDX = P + 4;
-  float* sDX = sM + kBI * kLdM;              // kBJ x kLdDX
-  float* sCumI = region + kRegion;
-  float* sCumJ = sCumI + kBI;
+                int q, int h, int g, int n, int n_iblk, int n_slices) {
+  using L = Smem<T, P>;
+  constexpr bool kBf16 = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char sm[];
+  float* sS = reinterpret_cast<float*>(sm + L::kS);
+  float* sRed = reinterpret_cast<float*>(sm + L::kRed);
 
-  const int iblk = blockIdx.x % n_iblk;
-  const long long cg = blockIdx.x / n_iblk;  // (batch * chunk) * g + group
-  const int gi = static_cast<int>(cg % g);
-  const long long bc = cg / g;               // batch * chunks + chunk
+  // I block slowest, from the last (most work) down
+  const int per_i = gridDim.x / n_iblk;
+  const int iblk = n_iblk - 1 - static_cast<int>(blockIdx.x / per_i);
+  const int rest = blockIdx.x % per_i;       // ((bc * g) + gi) * n_slices + slice
+  const int slice = rest % n_slices;
+  const int gi = (rest / n_slices) % g;
+  const long long bc = (rest / n_slices) / g;  // batch * chunks + chunk
   const int r = h / g;
   const int i0 = iblk * kBI;
-  const int j_end = min(q, i0 + kBI);        // keys any row of I can see
-  const int tid = threadIdx.x;
+  const int n_jb = iblk + 1;                 // key blocks J <= I
+  const int h0 = gi * r + slice * kHeads;    // first head of the slice
+  const int n_steps = min(kHeads, r - slice * kHeads) * n_jb;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp % 4, kh = warp / 4;    // 16-row group, key half
+  const int gq = lane / 4, tq = lane % 4;    // mma group and thread in group
+  const int ri0 = 16 * rw + gq, ri1 = ri0 + 8;   // this thread's rows of I
 
-  // ---- S = C_I B_J^T for J < j_end, once for every head of the slice ----
-  for (int idx = tid; idx < kBI * n; idx += kThreads) {
-    const int i = idx / n, kk = idx % n;
-    sC[i * ldC + kk] = i0 + i < q
-        ? to_f32(cm[((bc * q + i0 + i) * g + gi) * n + kk]) : 0.f;
-  }
-  {
-    const int rg = tid / 16, cgp = tid % 16;   // rows rg + 16 ii, cols 4 cgp..
-    for (int jc = 0; jc < j_end; jc += kBJ) {
-      __syncthreads();
-      for (int idx = tid; idx < kBJ * n; idx += kThreads) {
-        const int jj = idx / n, kk = idx % n;
-        sBt[kk * kLdBt + jj] = jc + jj < j_end
-            ? to_f32(bm[((bc * q + jc + jj) * g + gi) * n + kk]) : 0.f;
-      }
-      __syncthreads();
-      float acc[4][4] = {};
-      for (int kk = 0; kk < n; ++kk) {
-        const float4 bv = *reinterpret_cast<const float4*>(sBt + kk * kLdBt + cgp * 4);
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          const float a = sC[(rg + 16 * ii) * ldC + kk];
-          acc[ii][0] = fmaf(a, bv.x, acc[ii][0]);
-          acc[ii][1] = fmaf(a, bv.y, acc[ii][1]);
-          acc[ii][2] = fmaf(a, bv.z, acc[ii][2]);
-          acc[ii][3] = fmaf(a, bv.w, acc[ii][3]);
-        }
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          sS[(rg + 16 * ii) * kLdS + jc + cgp * 4 + jj] = acc[ii][jj];
+  // stage x_J, dt_J, cum_J of step (head, J) into stage step % kStages; a
+  // step past the last commits an empty group, so the count stays uniform
+  auto prefetch = [&](int step) {
+    if (step >= n_steps) {
+      cp_async_commit();
+      return;
     }
-  }
+    const int hd = h0 + step / n_jb;
+    const int jc = (step % n_jb) * kBJ;
+    unsigned char* st = sm + L::kStage + (step % kStages) * L::kStageBytes;
+    T* sx = reinterpret_cast<T*>(st);
+    float* sdt = reinterpret_cast<float*>(st + L::kXBytes);
+    constexpr int kVec = P * static_cast<int>(sizeof(T)) / 16;
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+    for (int idx = threadIdx.x; idx < kBJ * kVec; idx += kThreads) {
+      const int jj = idx / kVec, cc = idx % kVec;
+      const bool in = jc + jj < q;
+      cp_async16(sx + jj * L::kLdX + cc * kPer,
+                 x + ((bc * q + (in ? jc + jj : 0)) * h + hd) * P + cc * kPer,
+                 in);
+    }
+    if (threadIdx.x < 2 * kBJ) {             // dt, then cum
+      const int jj = threadIdx.x % kBJ;
+      const bool in = jc + jj < q;
+      cp_async4(sdt + threadIdx.x,
+                (threadIdx.x < kBJ ? dt : cum) +
+                    (bc * q + (in ? jc + jj : 0)) * h + hd,
+                in);
+    }
+    cp_async_commit();
+  };
+  for (int step = 0; step < kStages - 1; ++step) prefetch(step);
 
-  // ---- per head: Y_I = sum_J (S o L)_IJ (dt X)_J ----
-  constexpr int kCG = P / 4;                          // column groups of 4
-  constexpr int kRG = kThreads / kCG < kBI ? kThreads / kCG : kBI;
-  constexpr int kTR = kBI / kRG;                      // rows per thread
-  const bool active = tid < kCG * kRG;
-  const int rg = tid / kCG, cgp = tid % kCG;
-  for (int hs = 0; hs < kHeads; ++hs) {
-    const int hr = blockIdx.y * kHeads + hs;
-    if (hr >= r) break;
-    const int hd = gi * r + hr;
-    __syncthreads();                     // S complete; last head's reads done
-    if (tid < kBI)
-      sCumI[tid] = i0 + tid < q ? cum[(bc * q + i0 + tid) * h + hd] : 0.f;
-    float acc[kTR][4] = {};
-    for (int jc = 0; jc < j_end; jc += kBJ) {
-      __syncthreads();
-      for (int idx = tid; idx < kBJ * P; idx += kThreads) {
-        const int jj = idx / P, pp = idx % P;
-        float val = 0.f;
-        if (jc + jj < j_end) {
-          const long long row = (bc * q + jc + jj) * h + hd;
-          val = dt[row] * to_f32(x[row * P + pp]);
-        }
-        sDX[jj * kLdDX + pp] = val;
-      }
-      if (tid < kBJ)
-        sCumJ[tid] = jc + tid < j_end ? cum[(bc * q + jc + tid) * h + hd] : 0.f;
-      __syncthreads();
-      for (int idx = tid; idx < kBI * kBJ; idx += kThreads) {
-        const int i = idx / kBJ, jj = idx % kBJ;
-        const int ig = i0 + i, jg = jc + jj;
-        sM[i * kLdM + jj] = (ig < q && jg <= ig)
-            ? sS[i * kLdS + jg] * expf(sCumI[i] - sCumJ[jj]) : 0.f;
-      }
-      __syncthreads();
-      if (active) {
-        for (int jj = 0; jj < kBJ; ++jj) {
-          const float4 dv = *reinterpret_cast<const float4*>(sDX + jj * kLdDX + cgp * 4);
+  // ---- S = C_I B^T for the keys of blocks J <= I, once per CTA ----
+  {
+    const int r0 = i0 + ri0, r1 = i0 + ri1;
+    const T* c0 = r0 < q ? cm + ((bc * q + r0) * g + gi) * n : nullptr;
+    const T* c1 = r1 < q ? cm + ((bc * q + r1) * g + gi) * n : nullptr;
+    for (int jb = 0; jb < n_jb; ++jb) {
+      const int kb = jb * kBJ + kh * 32;     // this warp's 32 keys
+      float acc[4][4] = {};
+      const T* brow[4];
 #pragma unroll
-          for (int ii = 0; ii < kTR; ++ii) {
-            const float a = sM[(rg + kRG * ii) * kLdM + jj];
-            acc[ii][0] = fmaf(a, dv.x, acc[ii][0]);
-            acc[ii][1] = fmaf(a, dv.y, acc[ii][1]);
-            acc[ii][2] = fmaf(a, dv.z, acc[ii][2]);
-            acc[ii][3] = fmaf(a, dv.w, acc[ii][3]);
+      for (int nt = 0; nt < 4; ++nt) {
+        const int key = kb + nt * 8 + gq;
+        brow[nt] = key < q ? bm + ((bc * q + key) * g + gi) * n : nullptr;
+      }
+      if constexpr (kBf16) {
+#pragma unroll 4
+        for (int k = 0; k < n; k += 16) {
+          const int kc = k + 2 * tq;
+          const uint32_t a[4] = {ld_pair(c0, kc, n), ld_pair(c1, kc, n),
+                                 ld_pair(c0, kc + 8, n), ld_pair(c1, kc + 8, n)};
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const uint32_t b[2] = {ld_pair(brow[nt], kc, n),
+                                   ld_pair(brow[nt], kc + 8, n)};
+            mma_bf16(acc[nt], a, b);
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int k = 0; k < n; k += 8) {
+          const int kc = k + tq;
+          const float av[4] = {ld_one(c0, kc, n), ld_one(c1, kc, n),
+                               ld_one(c0, kc + 4, n), ld_one(c1, kc + 4, n)};
+          uint32_t ahi[4], alo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(av[e], ahi[e], alo[e]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            uint32_t bhi[2], blo[2];
+            split_tf32(ld_one(brow[nt], kc, n), bhi[0], blo[0]);
+            split_tf32(ld_one(brow[nt], kc + 4, n), bhi[1], blo[1]);
+            mma_3xtf32(acc[nt], ahi, alo, bhi, blo);
           }
         }
       }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = kb + nt * 8 + 2 * tq;
+        sS[ri0 * kLdS + col] = acc[nt][0];
+        sS[ri0 * kLdS + col + 1] = acc[nt][1];
+        sS[ri1 * kLdS + col] = acc[nt][2];
+        sS[ri1 * kLdS + col + 1] = acc[nt][3];
+      }
     }
-    if (active) {
+  }
+
+  // ---- per head: Y_I = sum_J ((S o L) o dt)_IJ X_J on the tensor cores ----
+  float acc[P / 8][4];
+  float cum0 = 0.f, cum1 = 0.f;
+  for (int step = 0; step < n_steps; ++step) {
+    const int jb = step % n_jb;
+    const int hd = h0 + step / n_jb;
+    if (jb == 0) {
 #pragma unroll
-      for (int ii = 0; ii < kTR; ++ii) {
-        const int ig = i0 + rg + kRG * ii;
-        if (ig >= q) continue;
-        const long long o = ((bc * q + ig) * h + hd) * P + cgp * 4;
-        if (out_bf16) {
-          bf16* yo = static_cast<bf16*>(y) + o;
+      for (int nt = 0; nt < P / 8; ++nt)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) yo[c] = __float2bfloat16_rn(acc[ii][c]);
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+      cum0 = i0 + ri0 < q ? cum[(bc * q + i0 + ri0) * h + hd] : 0.f;
+      cum1 = i0 + ri1 < q ? cum[(bc * q + i0 + ri1) * h + hd] : 0.f;
+    }
+    cp_async_wait_step();     // this thread's copies of the step landed
+    __syncthreads();          // everyone's; S written; step - 1 consumed
+    prefetch(step + kStages - 1);   // into the stage step - 1 used
+    const unsigned char* st = sm + L::kStage + (step % kStages) * L::kStageBytes;
+    const T* sx = reinterpret_cast<const T*>(st);
+    const float* sdt = reinterpret_cast<const float*>(st + L::kXBytes);
+    const float* scum = sdt + kBJ;
+    const int jc = jb * kBJ;
+    // M o dt_j; the exponent is masked to -inf for j > i
+    auto m_dt = [&](int ri, int ig, float cumi, int jl, int jg, float dtj) {
+      return sS[ri * kLdS + jg] *
+             expf(jg <= ig ? cumi - scum[jl] : -INFINITY) * dtj;
+    };
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {         // 8 keys of this warp's 32
+      const int ja = kh * 32 + ks * 8 + tq, jz = ja + 4;   // stage rows
+      const int ga = jc + ja, gz = jc + jz;                 // chunk rows
+      const int ig0 = i0 + ri0, ig1 = i0 + ri1;
+      // A = M o dt_j (f32, split hi + lo); B = x (bf16 x is exact in TF32,
+      // so the hi.lo product is zero and two products suffice)
+      const float dta = sdt[ja], dtz = sdt[jz];
+      const float av[4] = {m_dt(ri0, ig0, cum0, ja, ga, dta),
+                           m_dt(ri1, ig1, cum1, ja, ga, dta),
+                           m_dt(ri0, ig0, cum0, jz, gz, dtz),
+                           m_dt(ri1, ig1, cum1, jz, gz, dtz)};
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(av[e], ahi[e], alo[e]);
+#pragma unroll
+      for (int nt = 0; nt < P / 8; ++nt) {
+        const T xa = sx[ja * L::kLdX + nt * 8 + gq];
+        const T xz = sx[jz * L::kLdX + nt * 8 + gq];
+        if constexpr (kBf16) {
+          const uint32_t b[2] = {
+              static_cast<uint32_t>(__bfloat16_as_ushort(xa)) << 16,
+              static_cast<uint32_t>(__bfloat16_as_ushort(xz)) << 16};
+          mma_2xtf32(acc[nt], ahi, alo, b);
         } else {
-          *reinterpret_cast<float4*>(static_cast<float*>(y) + o) =
-              make_float4(acc[ii][0], acc[ii][1], acc[ii][2], acc[ii][3]);
+          uint32_t bhi[2], blo[2];
+          split_tf32(xa, bhi[0], blo[0]);
+          split_tf32(xz, bhi[1], blo[1]);
+          mma_3xtf32(acc[nt], ahi, alo, bhi, blo);
+        }
+      }
+    }
+    if (jb == n_jb - 1) {     // the head's last block: add the halves, store
+      if (kh == 1) {
+#pragma unroll
+        for (int nt = 0; nt < P / 8; ++nt) {
+          const int col = nt * 8 + 2 * tq;
+          sRed[ri0 * L::kLdR + col] = acc[nt][0];
+          sRed[ri0 * L::kLdR + col + 1] = acc[nt][1];
+          sRed[ri1 * L::kLdR + col] = acc[nt][2];
+          sRed[ri1 * L::kLdR + col + 1] = acc[nt][3];
+        }
+      }
+      __syncthreads();
+      if (kh == 0) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int ri = half ? ri1 : ri0;
+          if (i0 + ri >= q) continue;
+          const long long o = ((bc * q + i0 + ri) * h + hd) * P;
+#pragma unroll
+          for (int nt = 0; nt < P / 8; ++nt) {
+            const int col = nt * 8 + 2 * tq;
+            const float v0 = acc[nt][2 * half] + sRed[ri * L::kLdR + col];
+            const float v1 = acc[nt][2 * half + 1] + sRed[ri * L::kLdR + col + 1];
+            if (out_bf16) {
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(y) + o + col) =
+                  __floats2bfloat162_rn(v0, v1);
+            } else {
+              *reinterpret_cast<float2*>(static_cast<float*>(y) + o + col) =
+                  make_float2(v0, v1);
+            }
+          }
         }
       }
     }
@@ -202,21 +394,24 @@ template <typename T, int P>
 int launch(const void* x, const void* dt, const void* cum, const void* b,
            const void* c, void* y, long long nbc, int q, int h, int g, int n,
            int out_bf16, cudaStream_t stream) {
+  using L = Smem<T, P>;
   static bool set = false;
   if (!set) {
     cudaError_t e = cudaFuncSetAttribute(
         ssd_diag_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
+        L::kBytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     set = true;
   }
   const int n_iblk = (q + kBI - 1) / kBI;
-  const int r = h / g;
-  const dim3 grid(static_cast<unsigned>(nbc * g * n_iblk), (r + kHeads - 1) / kHeads);
-  ssd_diag_kernel<T, P><<<grid, kThreads, kSmemBytes, stream>>>(
+  const int n_slices = (h / g + kHeads - 1) / kHeads;
+  const long long blocks = nbc * g * n_slices * n_iblk;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  ssd_diag_kernel<T, P><<<static_cast<unsigned>(blocks), kThreads, L::kBytes,
+                          stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(cum), static_cast<const T*>(b),
-      static_cast<const T*>(c), y, out_bf16, q, h, g, n, n_iblk);
+      static_cast<const T*>(c), y, out_bf16, q, h, g, n, n_iblk, n_slices);
   return static_cast<int>(cudaGetLastError());
 }
 

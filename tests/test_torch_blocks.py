@@ -12,7 +12,7 @@ from repro.core.tracer import compute_cost as jax_compute_cost
 from repro_torch.core import blocks
 from repro_torch.core.tracer import compute_cost
 from repro_torch.kernels.proxy_blocks import ops
-from test_torch_kernels import MXU_RTOL, _bf16, _mxu_inputs, assert_mxu_close
+from test_torch_cuda import MXU_RTOL, _bf16, _mxu_inputs, assert_mxu_close
 
 
 @pytest.fixture(scope="module")

@@ -1,13 +1,16 @@
-"""The flash-attention and SSD CUDA kernels against their plain versions,
-on a CUDA card (every test here skips without one).  Imports no JAX, so it
-runs on a machine that has only PyTorch:
+"""The port's four CUDA kernels (``mxu_iter``, ``stream_iter``,
+``flash_fwd``, ``ssd_diag``) against their plain versions, on a CUDA card
+(every test here skips without one).  Imports no JAX, so it runs on a
+machine that has only PyTorch:
 
-    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q -s -m cuda tests/test_torch_cuda.py
 
-Each kernel is held element by element to ``tolerance.KERNEL_TOL``.  Two
-faults planted in a copy of the flash kernel's source, a dropped key tile
-and an accumulator that is not rescaled when the running maximum grows,
-must fail that limit at the Llama 3.2 3B prefill shape.
+The flash and SSD kernels are held element by element to
+``tolerance.KERNEL_TOL``.  Faults planted in copies of their sources must
+fail that limit by more than 10 times at the main path's shapes: a dropped
+key tile and an accumulator that is not rescaled when the running maximum
+grows (flash, Llama 3.2 3B prefill), a skipped key block and plain TF32,
+the low part's product dropped (SSD, Mamba2 2.7B prefill).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.kernels import tolerance
 from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+from repro_torch.kernels.proxy_blocks import ops as bops, ref as bref
 from repro_torch.kernels.ssd import ops as sops, ref as sref
 
 #: tests/test_kernels.py's sweeps, the smoke shapes, ragged lengths and the
@@ -26,20 +30,73 @@ FLASH_CASES = [
     (1, 256, 4, 2, 64, None, True), (2, 256, 2, 2, 128, 128, True),
     (1, 384, 4, 1, 64, None, True), (1, 512, 2, 1, 64, None, False),
     (2, 1024, 4, 2, 16, 16, True), (1, 77, 4, 2, 16, None, True),
+    (2, 300, 4, 2, 32, None, True), (1, 1000, 2, 1, 64, None, False),
     (4, 2048, 24, 8, 128, None, True)]
 SSD_CASES = [
     (1, 2, 32, 1, 4, 16, 16), (2, 2, 16, 2, 8, 8, 32), (1, 1, 64, 1, 12, 16, 16),
     (2, 4, 8, 1, 8, 16, 16), (4, 8, 256, 1, 80, 64, 128)]
 #: faults planted in the bf16 flash kernel, as (text, replacement)
 FLASH_MUTANTS = {
-    # skip the tile of keys from s/2 for every query block past it
-    "drop_tile": ("    const int k0 = jt * kBK;\n",
-                  "    const int k0 = jt * kBK;\n"
-                  "    if (k0 == s / 2 && q0 >= k0 + kBK) continue;\n"),
+    # skip the tile of keys from s/2 for every query tile past it
+    "drop_tile": ("      const int k0 = jt * kTile;\n",
+                  "      const int k0 = jt * kTile;\n"
+                  "      if (k0 == s / 2 && q0 >= k0 + kTile) {\n"
+                  "        mbar_arrive(&empty[st]);\n"
+                  "        continue;\n"
+                  "      }\n"),
     # keep the accumulator at the old maximum's scale
-    "stale_max": ("    for (int c = half; c < D; c += 2) orow[c] *= corr;\n",
-                  ""),
+    "stale_max": ("#pragma unroll\n"
+                  "      for (int j = 0; j < D / 2; ++j) oacc[j] *= (j & 2) ? "
+                  "corr1 : corr0;\n", ""),
 }
+#: faults planted in the SSD kernel, as (text, replacement)
+SSD_MUTANTS = {
+    # skip the key block just below the diagonal (J = I - 1): the decay
+    # leaves blocks further back too small to see
+    "skip_block": ("    const int jc = jb * kBJ;\n",
+                   "    const int jc = jb * kBJ;\n"
+                   "    if (jb == n_jb - 2) continue;\n"),
+    # plain TF32: the low part's product dropped (bf16 x, the serve path)
+    "tf32": ("  mma_tf32(c, alo, b);\n", ""),
+}
+
+
+#: bf16 outputs of one turn: at most one bf16 ulp (8 significant bits) of
+#: the largest output, held per case against max|want|.  Over ``reps``
+#: turns the limit is sqrt(reps) times that: two correct versions that sum
+#: in different orders round a few outputs to neighbouring bf16 values each
+#: turn, and the orthogonal ``b`` of ``_mxu_inputs`` carries those
+#: differences forward without growing them, so they add like a random walk
+#: (the CUDA kernel against cuBLAS on an H100: 0.0244 at reps 32, max|want|
+#: 2.47).  On the CPU the port and the reference agree exactly.
+MXU_RTOL = 2.0 ** -7
+
+
+def _mxu_inputs(seed: int, scale: float = bref.MXU_SCALE,
+                batch: tuple = ()):
+    """``a`` ~ U(-1, 1) and ``b`` an orthogonal matrix divided by ``scale``,
+    so each turn ``a <- bf16(a @ b * scale)`` keeps the norm of every row of
+    ``a``: the outputs stay O(1) over any number of turns, and a kernel that
+    runs too few turns, drops the scale or sums in bf16 misses by far more
+    than the tolerance."""
+    rng = np.random.RandomState(seed)
+    a = rng.uniform(-1, 1, batch + (bref.MM, bref.MM)).astype(np.float32)
+    q, r = np.linalg.qr(rng.standard_normal(batch + (bref.MM, bref.MM)))
+    q = q * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[..., None, :]
+    return a, (q / scale).astype(np.float32)
+
+
+def _bf16(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+def assert_mxu_close(got, want, reps: int = 1) -> None:
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    top = float(np.abs(want).max())
+    assert top >= 0.5, f"outputs decayed to {top}: the comparison says nothing"
+    err = float(np.abs(got - want).max())
+    assert err <= max(reps, 1) ** 0.5 * MXU_RTOL * top, (err, top)
 
 
 @pytest.fixture(autouse=True)
@@ -98,6 +155,23 @@ def test_cuda_ssd_kernel_matches_plain(b, c, q, g, r, p, n, dtype):
         assert _excess("ssd_diag", got, want) <= 1
 
 
+def _with_mutants(tmp_path, monkeypatch, ops, mutants, run) -> dict:
+    """``run()``'s worst error over its limit for the kernel, then for a
+    copy of its source with each fault of ``mutants`` planted (built and
+    loaded in place of the kernel)."""
+    worst = {"kernel": run()}
+    text = ops.SOURCE.read_text()
+    for name, (old, new) in mutants.items():
+        assert text.count(old) == 1, f"{name}: the text to change is gone"
+        src = tmp_path / name / ops.SOURCE.parent.name / "kernel.cu"
+        src.parent.mkdir(parents=True)
+        src.write_text(text.replace(old, new))
+        monkeypatch.setattr(ops, "SOURCE", src)
+        worst[name] = run()
+    monkeypatch.undo()
+    return worst
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("window", [None, 512])
 def test_cuda_flash_mutants_fail_the_limit(tmp_path, monkeypatch, window):
@@ -106,21 +180,31 @@ def test_cuda_flash_mutants_fail_the_limit(tmp_path, monkeypatch, window):
     far outside it."""
     q, k, v = _flash_inputs(5, 4, 2048, 24, 8, 128, torch.bfloat16)
     want = fref.attention_ref(q, k, v, window=window)
-    worst = {"kernel": _excess("flash_fwd", fops.flash_attention_fwd(
-        q, k, v, window=window), want)}
-    text = fops.SOURCE.read_text()
-    for name, (old, new) in FLASH_MUTANTS.items():
-        assert text.count(old) == 1, f"{name}: the text to change is gone"
-        src = tmp_path / name / "flash_attention" / "kernel.cu"
-        src.parent.mkdir(parents=True)
-        src.write_text(text.replace(old, new))
-        monkeypatch.setattr(fops, "SOURCE", src)
-        worst[name] = _excess("flash_fwd", fops.flash_attention_fwd(
-            q, k, v, window=window), want)
-    monkeypatch.undo()
+    worst = _with_mutants(tmp_path, monkeypatch, fops, FLASH_MUTANTS,
+                          lambda: _excess("flash_fwd", fops.flash_attention_fwd(
+                              q, k, v, window=window), want))
     print(f"window {window}: worst error over its limit {worst}")
     assert worst["kernel"] <= 1
     assert worst["drop_tile"] > 10 and worst["stale_max"] > 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_mutants_fail_the_limit(tmp_path, monkeypatch, out_dtype):
+    """The kernel and two faulty copies of its source at the Mamba2 2.7B
+    prefill shape (bf16 in): a skipped key block and plain TF32 each miss
+    the limit by more than 10 times in f32 (a bf16 output rounds away the
+    TF32 fault, so only the skipped block is held there)."""
+    ins = _ssd_inputs(7, 4, 8, 256, 1, 80, 64, 128, torch.bfloat16)
+    want = sref.ssd_diag_ref(*ins, 80, out_dtype=out_dtype)
+    worst = _with_mutants(tmp_path, monkeypatch, sops, SSD_MUTANTS,
+                          lambda: _excess("ssd_diag", sops.ssd_diag_block(
+                              *ins, 80, out_dtype=out_dtype), want))
+    print(f"{out_dtype}: worst error over its limit {worst}")
+    assert worst["kernel"] <= 1
+    assert worst["skip_block"] > 10
+    if out_dtype == torch.float32:
+        assert worst["tf32"] > 10
 
 
 @pytest.mark.cuda
@@ -141,3 +225,54 @@ def test_cuda_zoo_empty_inputs_launch_nothing_and_views_are_copied():
     assert view.data_ptr() % 16
     assert torch.equal(fops.flash_attention_fwd(view, k, v),
                        fops.flash_attention_fwd(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [1, 5, 7, 32])
+def test_cuda_mxu_kernel_matches_plain(reps):
+    for scale in (bref.MXU_SCALE, 1.0):
+        a, b = _mxu_inputs(reps, scale)
+        a, b = _bf16(a).cuda(), _bf16(b).cuda()
+        got = bops.mxu_iter(a, b, reps, scale)
+        want = bref.mxu_ref(a, b, reps, scale)
+        assert_mxu_close(got.float().cpu().numpy(),
+                         want.float().cpu().numpy(), reps)
+        # the last turn alone, at the one-turn limit
+        last = bref.mxu_ref(bops.mxu_iter(a, b, reps - 1, scale), b, 1, scale)
+        assert_mxu_close(got.float().cpu().numpy(), last.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,reps", [(2048, 3), (4096, 17), (32768, 5)])
+def test_cuda_stream_kernel_is_bit_exact(n, reps):
+    v = torch.rand(n, generator=torch.Generator().manual_seed(n)).cuda()
+    assert torch.equal(bops.stream_iter(v, reps), bref.stream_ref(v, reps))
+
+
+@pytest.mark.cuda
+def test_cuda_misaligned_views_are_realigned():
+    """The kernels load 16-byte vectors; a contiguous view that starts off
+    a 16-byte boundary is copied first instead of faulting."""
+    big = torch.rand(4096 + 1, device="cuda")
+    v = big[1:]
+    assert v.is_contiguous() and v.data_ptr() % 16
+    assert torch.equal(bops.stream_iter(v, 3), bref.stream_ref(v, 3))
+    a, b = _mxu_inputs(0)
+    flat = torch.zeros(bref.MM * bref.MM + 1, dtype=torch.bfloat16,
+                       device="cuda")
+    flat[1:] = _bf16(a).cuda().flatten()
+    a_view = flat[1:].view(bref.MM, bref.MM)
+    assert a_view.data_ptr() % 16
+    b = _bf16(b).cuda()
+    assert torch.equal(bops.mxu_iter(a_view, b, 5),
+                       bops.mxu_iter(a_view.clone(), b, 5))
+
+
+@pytest.mark.cuda
+def test_cuda_empty_inputs_launch_nothing():
+    bops.reset_counts()
+    a = torch.empty(0, bref.MM, bref.MM, dtype=torch.bfloat16, device="cuda")
+    b = torch.empty(bref.MM, bref.MM, dtype=torch.bfloat16, device="cuda")
+    assert bops.mxu_iter(a, b, 3).shape == a.shape
+    assert bops.stream_iter(torch.empty(0, 1024, device="cuda"), 3).numel() == 0
+    assert bops.LAUNCHES == {"mxu_iter": 0, "stream_iter": 0}

@@ -1,6 +1,7 @@
 """Proxy-block kernels of the port: plain versions against the JAX
-reference's oracles, the wrappers' dispatch rules, and (on a CUDA card
-only) the CUDA kernels against their plain versions."""
+reference's oracles and the wrappers' dispatch rules.  The CUDA kernels
+themselves are tested in ``tests/test_torch_cuda.py``, which imports no JAX
+so that it runs on a card."""
 from __future__ import annotations
 
 import shutil
@@ -14,43 +15,7 @@ from repro.core import blocks as jax_blocks
 from repro.kernels.proxy_blocks import ref as jax_ref
 from repro_torch.kernels import build
 from repro_torch.kernels.proxy_blocks import ops, ref
-
-#: bf16 outputs of one turn: at most one bf16 ulp (8 significant bits) of
-#: the largest output, held per case against max|want|.  Over ``reps``
-#: turns the limit is sqrt(reps) times that: two correct versions that sum
-#: in different orders round a few outputs to neighbouring bf16 values each
-#: turn, and the orthogonal ``b`` of ``_mxu_inputs`` carries those
-#: differences forward without growing them, so they add like a random walk
-#: (the CUDA kernel against cuBLAS on an H100: 0.0244 at reps 32, max|want|
-#: 2.47).  On the CPU the port and the reference agree exactly.
-MXU_RTOL = 2.0 ** -7
-
-
-def _mxu_inputs(seed: int, scale: float = ref.MXU_SCALE, batch: tuple = ()):
-    """``a`` ~ U(-1, 1) and ``b`` an orthogonal matrix divided by ``scale``,
-    so each turn ``a <- bf16(a @ b * scale)`` keeps the norm of every row of
-    ``a``: the outputs stay O(1) over any number of turns, and a kernel that
-    runs too few turns, drops the scale or sums in bf16 misses by far more
-    than the tolerance."""
-    rng = np.random.RandomState(seed)
-    a = rng.uniform(-1, 1, batch + (ref.MM, ref.MM)).astype(np.float32)
-    q, r = np.linalg.qr(rng.standard_normal(batch + (ref.MM, ref.MM)))
-    q = q * np.sign(np.diagonal(r, axis1=-2, axis2=-1))[..., None, :]
-    return a, (q / scale).astype(np.float32)
-
-
-def _bf16(x: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(x).to(torch.bfloat16)
-
-
-def assert_mxu_close(got, want, reps: int = 1) -> None:
-    got = np.asarray(got, np.float32)
-    want = np.asarray(want, np.float32)
-    top = float(np.abs(want).max())
-    assert top >= 0.5, f"outputs decayed to {top}: the comparison says nothing"
-    err = float(np.abs(got - want).max())
-    assert err <= max(reps, 1) ** 0.5 * MXU_RTOL * top, (err, top)
-
+from test_torch_cuda import _bf16, _mxu_inputs, assert_mxu_close
 
 @pytest.mark.parametrize("reps", [1, 5, 7, 32])
 def test_mxu_ref_matches_jax_ref(reps):
@@ -205,62 +170,3 @@ def test_library_path_keys_on_source(tmp_path):
     src.write_text("// two\n")
     assert build.library_path(src) != first
     assert first.parent == build.BUILD_DIR
-
-
-def _need_cuda() -> None:
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (chip_smoke.py runs this there)")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("reps", [1, 5, 7, 32])
-def test_cuda_mxu_kernel_matches_plain(reps):
-    _need_cuda()
-    for scale in (ref.MXU_SCALE, 1.0):
-        a, b = _mxu_inputs(reps, scale)
-        a, b = _bf16(a).cuda(), _bf16(b).cuda()
-        got = ops.mxu_iter(a, b, reps, scale)
-        want = ref.mxu_ref(a, b, reps, scale)
-        assert_mxu_close(got.float().cpu().numpy(),
-                         want.float().cpu().numpy(), reps)
-        # the last turn alone, at the one-turn limit
-        last = ref.mxu_ref(ops.mxu_iter(a, b, reps - 1, scale), b, 1, scale)
-        assert_mxu_close(got.float().cpu().numpy(), last.float().cpu().numpy())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,reps", [(2048, 3), (4096, 17), (32768, 5)])
-def test_cuda_stream_kernel_is_bit_exact(n, reps):
-    _need_cuda()
-    v = torch.rand(n, generator=torch.Generator().manual_seed(n)).cuda()
-    assert torch.equal(ops.stream_iter(v, reps), ref.stream_ref(v, reps))
-
-
-@pytest.mark.cuda
-def test_cuda_misaligned_views_are_realigned():
-    """The kernels load 16-byte vectors; a contiguous view that starts off
-    a 16-byte boundary is copied first instead of faulting."""
-    _need_cuda()
-    big = torch.rand(4096 + 1, device="cuda")
-    v = big[1:]
-    assert v.is_contiguous() and v.data_ptr() % 16
-    assert torch.equal(ops.stream_iter(v, 3), ref.stream_ref(v, 3))
-    a, b = _mxu_inputs(0)
-    flat = torch.zeros(ref.MM * ref.MM + 1, dtype=torch.bfloat16, device="cuda")
-    flat[1:] = _bf16(a).cuda().flatten()
-    a_view = flat[1:].view(ref.MM, ref.MM)
-    assert a_view.data_ptr() % 16
-    b = _bf16(b).cuda()
-    assert torch.equal(ops.mxu_iter(a_view, b, 5),
-                       ops.mxu_iter(a_view.clone(), b, 5))
-
-
-@pytest.mark.cuda
-def test_cuda_empty_inputs_launch_nothing():
-    _need_cuda()
-    ops.reset_counts()
-    a = torch.empty(0, ref.MM, ref.MM, dtype=torch.bfloat16, device="cuda")
-    b = torch.empty(ref.MM, ref.MM, dtype=torch.bfloat16, device="cuda")
-    assert ops.mxu_iter(a, b, 3).shape == a.shape
-    assert ops.stream_iter(torch.empty(0, 1024, device="cuda"), 3).numel() == 0
-    assert ops.LAUNCHES == {"mxu_iter": 0, "stream_iter": 0}

@@ -189,10 +189,10 @@ def test_non_cpu_non_cuda_tensors_raise():
         sops.ssd_diag_block(x, dt, dt, bm, bm, 2)
 
 
-def _flash_kernel_emulation(q, k, v, *, causal=True, window=None, tile=64,
+def _flash_kernel_emulation(q, k, v, *, causal=True, window=None, tile=128,
                             mutant=None):
     """The bf16 kernel's tile loop in PyTorch (kernel.cu::flash_fwd_bf16_
-    kernel): 64-key tiles in order, the running maximum m and sum l in f32,
+    kernel): 128-key tiles in order (64 before the kernel's redesign), the running maximum m and sum l in f32,
     P = exp(s - m) rounded to bf16 for P·V at the tile's running maximum,
     the accumulator rescaled by exp(m_old - m_new) between tiles.
 
@@ -235,7 +235,7 @@ def test_flash_limits_pass_the_kernels_loop_and_fail_its_mutants(window):
     """At the depth of the Llama 3.2 3B prefill (s 2048, d 128; fewer
     heads): late causal rows average about 2048 values, so their outputs
     are about 30 times smaller than row 0's; a limit taken from max|plain|
-    would pass a kernel that drops 64 of their keys.  The per-element limit
+    would pass a kernel that drops 128 of their keys.  The per-element limit
     passes the faithful tile loop and fails both planted faults by far."""
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _flash_inputs(11, 1, 2048, 4, 2, 128))
@@ -276,3 +276,81 @@ def test_tolerance_limit_is_per_element():
     assert float(lim[1].max()) < 1e-30
     assert tolerance.excess(want, want, 2, 0.5) == 0
     assert tolerance.excess(want + 0.01, want, 0, 1e-3) > 1
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_flash_kernel_loop_passes_at_either_key_tile(tile):
+    """The limits do not depend on the kernel's key tile: the faithful loop
+    passes them with 64-key tiles (the first kernel) and 128-key tiles (the
+    wgmma kernel), windowed and ragged."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _flash_inputs(13, 1, 1000, 4, 2, 64))
+    for window in (None, 300):
+        want = fref.attention_ref(q, k, v, window=window)
+        got = _flash_kernel_emulation(q, k, v, window=window, tile=tile)
+        assert tolerance.kernel_excess("flash_fwd", got, want) <= 0.5
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _ssd_tensor_core_emulation(xc, dtc, cum, bc, cc, r, mode):
+    """The SSD kernel's arithmetic (ssd/kernel.cu) in PyTorch for bf16
+    x, B, C and an f32 output: S = C B^T in f32 (exact bf16 products),
+    A = S o exp(masked decay) o dt_j in f32, then Y = A x on the tensor
+    cores as ``mode`` gives it: "split" (the kernel: A split into TF32 hi
+    and lo, x exact in TF32, lo.x + hi.x), "tf32" (hi.x alone) or "bf16_m"
+    (M = S o exp(decay) rounded to bf16, times dt x in f32)."""
+    b, c, q, h, p = xc.shape
+    g = bc.shape[3]
+    s = torch.einsum("bcqgn,bckgn->bcgqk", cc.float(), bc.float())
+    cumg = cum.float().reshape(b, c, q, g, r)
+    dec = cumg[:, :, :, None] - cumg[:, :, None]              # (b,c,q,k,g,r)
+    iq = torch.arange(q)
+    seen = (iq[:, None] >= iq[None, :])[:, :, None, None]
+    m = s.permute(0, 1, 3, 4, 2)[..., None] * torch.exp(
+        torch.where(seen, dec, -torch.inf))
+    dt = dtc.float().reshape(b, c, 1, q, g, r)
+    x = xc.float().reshape(b, c, q, g, r, p)
+
+    def prod(a, z):
+        return torch.einsum("bcqkgr,bckgrp->bcqgrp", a, z)
+
+    if mode == "bf16_m":
+        y = prod(m.to(torch.bfloat16).float(), dt.reshape(b, c, q, g, r, 1) * x)
+    else:
+        a = m * dt
+        hi = _tf32(a)
+        y = prod(hi, x)
+        if mode == "split":
+            y = prod(_tf32(a - hi), x) + y
+    return y.reshape(b, c, q, h, p)
+
+
+def test_ssd_split_tf32_holds_the_f32_limit_and_one_rounding_does_not():
+    """At a Mamba2 2.7B block (one chunk of 256, 80 heads of 64, state 128,
+    bf16 in): the kernel's split TF32 product lies within the ssd_diag f32
+    limit (4 ulps plus 2^-14 of the row's RMS); one TF32 rounding, or M
+    rounded to bf16, misses it by more than 10 times."""
+    x, dt, cum, bm, cm = _ssd_inputs(17, 1, 1, 256, 1, 80, 64, 128)
+    ins = (_torch(x, "bfloat16"), torch.from_numpy(dt), torch.from_numpy(cum),
+           _torch(bm, "bfloat16"), _torch(cm, "bfloat16"))
+    want = sref.ssd_diag_ref(*ins, 80, out_dtype=torch.float32)
+    assert float(want.abs().max()) > 0.3
+    worst = {mode: tolerance.kernel_excess(
+        "ssd_diag", _ssd_tensor_core_emulation(*ins, 80, mode), want)
+        for mode in ("split", "tf32", "bf16_m")}
+    print(f"worst error over the f32 limit {worst}")
+    assert worst["split"] <= 0.5
+    assert worst["tf32"] > 10 and worst["bf16_m"] > 10
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
+                      -(1.0 + 3 * 2.0 ** -11)])
+    assert _tf32(x).tolist() == [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0,
+                                 -(1.0 + 2.0 ** -9)]

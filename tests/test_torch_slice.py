@@ -18,8 +18,8 @@ from repro_torch.core.replay import init_replay_state
 from repro_torch.core.synthesize import synthesize
 from repro_torch.core.trace_ir import TraceStore
 from repro_torch.workloads import synthetic_rank_traces
+from test_torch_cuda import MXU_RTOL
 from test_torch_harness import run_reference
-from test_torch_kernels import MXU_RTOL
 
 SIZES = (16, 64)
 #: the reference's δ̄ on the 64-rank synthetic trace (JAX 0.9.0, CPU)

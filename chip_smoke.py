@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --launch-cost OLD . . OLD    # only the launch path
 
 Builds the hand-written CUDA kernels from the sources in this checkout,
 holds each kernel against its plain PyTorch version, and drives the port's
@@ -15,10 +16,18 @@ paths on the card, checking that each went through its kernels:
   layer alone); then the three smoke configs on the card against the CPU.
 
 Then it times every kernel against its plain version, its bound and, where
-one PyTorch call computes the same function, that call.  Imports nothing
+one PyTorch call computes the same function, that call; for the two
+proxy-block kernels, whose launches at the main path's reps 5 cost the
+host more than the device, also the profiler's device time per launch and
+the wrapper's host time per call.  Imports nothing
 of JAX or of the JAX package.  Exits non-zero, printing no result, without
 a CUDA device or outside a checkout of the repository.  The last line of
 its output is ``{"ok": true, "device": {...}}``.
+
+``--launch-cost TREE ...`` runs nothing of the above: it times, in a fresh
+process for each checkout named and in that order, the proxy-block
+wrappers' host cost per call and ``run_all`` (:func:`launch_cost`), and
+writes the runs to ``build/launch_cost.json`` of this checkout.
 """
 from __future__ import annotations
 
@@ -50,6 +59,8 @@ N_RANKS = 64
 #: value, and an orthogonal b carries those differences forward without
 #: growing them, so they add like a random walk (see check_mxu)
 MXU_RTOL = 2.0 ** -7
+#: turns per piece when a long chain is checked piece by piece
+MXU_PIECE = 64
 STATE_ATOL = 1e-4  # f32 leaves, CUDA vs CPU: see check_states
 
 SERVE_BATCH = 4
@@ -81,6 +92,8 @@ REFERENCE_MAMBA2_BF16_DRIFT = 0.442
 CONSISTENCY_BF16_RTOL = {"llama3.2-3b": 0.05,
                          "mamba2-2.7b": 2 * REFERENCE_MAMBA2_BF16_DRIFT}
 SSM_LAYER_BF16_RTOL = 2.0 ** -4
+#: calls a case of --launch-cost: 20 processes of it fit in a quarter hour
+LAUNCH_COST_CALLS = 2000
 SMOKE_PROMPTS = {"llama3.2-3b": 1024, "mamba2-2.7b": 256, "gemma3-4b": 1024}
 
 
@@ -130,7 +143,9 @@ def phase_build() -> None:
             if "Used" in line or "spill" in line:
                 print(f"  {line.strip()}")
     print(f"build: {secs:.2f} s")
-    sass_counts(libs)
+    counts = sass_counts(libs).get("mxu_iter_kernel")
+    if counts is not None and (counts["HGMMA"] == 0 or counts["HMMA"] > 0):
+        fail(f"mxu_iter_kernel is not on wgmma alone: {counts}")
 
 
 #: SASS instructions that show which engines a kernel uses: HGMMA (wgmma),
@@ -138,16 +153,18 @@ def phase_build() -> None:
 SASS_OPS = ("HGMMA", "HMMA", "LDGSTS", "UTMALDG")
 #: the redesigned kernels, by source directory and function name
 SASS_KERNELS = {"flash_attention": "flash_fwd_bf16_kernel",
-                "ssd": "ssd_diag_kernel"}
+                "ssd": "ssd_diag_kernel",
+                "proxy_blocks": "mxu_iter_kernel"}
 
 
-def sass_counts(libs: dict) -> None:
+def sass_counts(libs: dict) -> dict:
     """Print the count of SASS_OPS in each redesigned kernel's functions
     (all template instances together), from ``cuobjdump -sass`` on the
-    built library."""
+    built library; return them by function name."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
     for src, lib in libs.items():
         func = SASS_KERNELS.get(src.parent.name)
         if func is None:
@@ -168,6 +185,8 @@ def sass_counts(libs: dict) -> None:
                     counts[op] += len(re.findall(rf"\b{op}\b", line))
         print(f"sass {func} ({src.relative_to(ROOT)}): " + ", ".join(
             f"{op} {n}" for op, n in counts.items()))
+        out[func] = counts
+    return out
 
 
 def mxu_inputs(rng, scale: float, batch: tuple = ()):
@@ -200,6 +219,33 @@ def check_mxu(got, want, what: str, reps: int = 1) -> float:
     return err
 
 
+def check_mxu_pieces(got, a, b, reps: int, scale: float) -> None:
+    """A long chain in pieces of MXU_PIECE turns, where sqrt(reps) ulps
+    would pass too much (half the largest output at reps 4096): the kernel
+    is deterministic, so one launch of ``reps`` turns must equal reps /
+    MXU_PIECE launches bit for bit, and each piece is held to the plain
+    chain restarted from the kernel's own output, at the piece's limit."""
+    from repro_torch.kernels.proxy_blocks import ops, ref
+
+    x, worst = a, 0.0
+    for i in range(reps // MXU_PIECE):
+        nxt = ops.mxu_iter(x, b, MXU_PIECE, scale)
+        want = ref.mxu_ref(x, b, MXU_PIECE, scale)
+        err = float((nxt.float() - want.float()).abs().max())
+        limit = MXU_PIECE ** 0.5 * MXU_RTOL * float(want.float().abs().max())
+        if not err <= limit:
+            fail(f"mxu_iter reps={reps} scale={scale:g}: piece {i} is "
+                 f"{err} off the plain chain, limit {limit}")
+        worst = max(worst, err / limit)
+        x = nxt
+    if not torch.equal(got, x):
+        fail(f"mxu_iter reps={reps} scale={scale:g} differs from "
+             f"{reps // MXU_PIECE} launches of {MXU_PIECE} turns")
+    print(f"kernel mxu_iter reps={reps} scale={scale:g}: equal to "
+          f"{reps // MXU_PIECE} launches of {MXU_PIECE} turns, each within "
+          f"{worst:.3g} of its limit")
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version on the card, same inputs."""
     import numpy as np
@@ -208,22 +254,32 @@ def phase_kernels(dev) -> dict:
 
     rng = np.random.RandomState(0)
     errs = {}
-    for reps in (1, 5, 7, 32):
+    for reps in (0, 1, 5, 7, 32, 4096):
         for scale in (ref.MXU_SCALE, 1.0):
             a, b = (x.to(dev, torch.bfloat16) for x in mxu_inputs(rng, scale))
             got = ops.mxu_iter(a, b, reps, scale)
+            if reps == 0:
+                if not torch.equal(got, a):
+                    fail("mxu_iter reps=0 is not a copy of a")
+                continue
             err = check_mxu(got, ref.mxu_ref(a, b, reps, scale),
                             f"reps={reps} scale={scale:g}", reps)
             if reps > 1:    # the last turn alone, at the one-turn limit
                 prev = ops.mxu_iter(a, b, reps - 1, scale)
                 check_mxu(got, ref.mxu_ref(prev, b, 1, scale),
                           f"reps={reps} scale={scale:g}, last turn")
+            if reps > MXU_PIECE:
+                check_mxu_pieces(got, a, b, reps, scale)
             if reps == 5 and scale == 1.0:
                 errs["mxu_iter"] = err
-    # batched a and b (the per-rank-seeds replay)
+    print("kernel mxu_iter reps=0: a copy of a, bit for bit")
+    # batched a, with one b per item (the per-rank-seeds replay) and with
+    # one b shared by every item
     a, b = (x.to(dev, torch.bfloat16) for x in mxu_inputs(rng, 1.0, (3,)))
     check_mxu(ops.mxu_iter(a, b, 5, 1.0), ref.mxu_ref(a, b, 5, 1.0),
-              "batched (3,128,128) reps=5", 5)
+              "batched (3,128,128), b per item, reps=5", 5)
+    check_mxu(ops.mxu_iter(a, b[1], 5, 1.0), ref.mxu_ref(a, b[1], 5, 1.0),
+              "batched (3,128,128), b shared, reps=5", 5)
     # the main path's own inputs: init_state's b shrinks a about 20-fold a
     # turn, so its outputs are small but far from bf16's underflow at reps=5
     st = blocks.init_state(0, dev)
@@ -696,11 +752,24 @@ def _leaves(tree) -> list:
     return tree_leaves(tree)
 
 
+def kernel_times(prof) -> list[tuple]:
+    """(device us, launches, name) of each kernel a profile saw."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        rows.append((e.self_cuda_time_total if t is None else t, e.count,
+                     e.key))
+    return rows
+
+
 def profile_call(fn, label: str):
     """Run ``fn()`` once under torch.profiler; print the device kernel time
     by name and the device's busy share of the call's wall time (the
     profiler slows the host side, so the share is a floor)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -709,13 +778,7 @@ def profile_call(fn, label: str):
         out = fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        rows.append((e.self_cuda_time_total if t is None else t, e.count,
-                     e.key))
+    rows = kernel_times(prof)
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print(f"profile {label}: device time not measured")
@@ -840,6 +903,40 @@ def zoo_timings(dev) -> dict:
     return {"flash_fwd": flash, "ssd_diag": ssd}
 
 
+def host_us(fn, calls: int) -> float:
+    """Host microseconds per call of ``fn()`` over ``calls`` back-to-back
+    calls (time.perf_counter after a warm-up, no synchronise inside the
+    loop).  Where the device takes longer than the host, the host waits for
+    it once the launch queue is full, and this is the device's time."""
+    for _ in range(min(calls, 100)):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
+def device_us(fn, kernel: str, calls: int):
+    """The profiler's device microseconds per launch of the kernel whose
+    name holds ``kernel``, over ``calls`` calls of ``fn()``; None if the
+    profiler saw no such launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    mine = [(t, n) for t, n, key in kernel_times(prof) if kernel in key]
+    count = sum(n for _, n in mine)
+    return sum(t for t, _ in mine) / count if count else None
+
+
 def phase_timings(dev, launches: dict, errs: dict) -> list[dict]:
     """Kernel, plain and bound times at the main paths' shapes."""
     from repro_torch.kernels.proxy_blocks import ops, ref
@@ -851,10 +948,12 @@ def phase_timings(dev, launches: dict, errs: dict) -> list[dict]:
     table = {}
     for reps in (5, 4096):
         iters = 200 if reps == 5 else 20
+        calls = 10000 if reps == 5 else 100
         mxu_bytes = 3 * a.numel() * 2
         mxu_flops = reps * 2 * 128 ** 3
+        mxu_call = lambda: ops.mxu_iter(a, b, reps, 1.0)    # noqa: E731
         mxu = {
-            "ms": cuda_ms(lambda: ops.mxu_iter(a, b, reps, 1.0), iters),
+            "ms": cuda_ms(mxu_call, iters),
             "plain_ms": cuda_ms(lambda: ref.mxu_ref(a, b, reps, 1.0),
                                 max(iters // 10, 2)),
             "bound_ms": 1e3 * max(mxu_bytes / PEAK_BYTES,
@@ -863,11 +962,17 @@ def phase_timings(dev, launches: dict, errs: dict) -> list[dict]:
                          >= mxu_flops / PEAK_BF16_FLOPS else "operations"),
             # no single PyTorch call iterates: see the reps=1 yardstick
             "library_ms": None,
+            # one item's chain of turns runs on the two SMs that hold its
+            # two row halves: 2/132 of the card's tensor cores
+            "two_sm_bound_ms": 1e3 * mxu_flops / (PEAK_BF16_FLOPS * 2 / 132),
+            "device_us": device_us(mxu_call, "mxu_iter_kernel", iters),
+            "host_us": host_us(mxu_call, calls),
         }
         st_bytes = 2 * v.numel() * 4
         st_ops = reps * 2 * v.numel()
+        stream_call = lambda: ops.stream_iter(v, reps)      # noqa: E731
         stream = {
-            "ms": cuda_ms(lambda: ops.stream_iter(v, reps), iters),
+            "ms": cuda_ms(stream_call, iters),
             "plain_ms": cuda_ms(lambda: ref.stream_ref(v, reps),
                                 max(iters // 10, 2)),
             "bound_ms": 1e3 * max(st_bytes / PEAK_BYTES,
@@ -875,13 +980,27 @@ def phase_timings(dev, launches: dict, errs: dict) -> list[dict]:
             "bound_by": ("bytes" if st_bytes / PEAK_BYTES
                          >= st_ops / PEAK_F32_FLOPS else "operations"),
             "library_ms": None,
+            "device_us": device_us(stream_call, "stream_iter_kernel", iters),
+            "host_us": host_us(stream_call, calls),
         }
         table[("mxu_iter", reps)] = mxu
         table[("stream_iter", reps)] = stream
         for name, row in (("mxu_iter", mxu), ("stream_iter", stream)):
-            print(f"timing {name} reps={reps}: kernel {row['ms']:.4f} ms, "
-                  f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} "
-                  f"ms ({row['bound_by']})")
+            dev_us = ("not measured" if row["device_us"] is None
+                      else f"{row['device_us']:.3f} us")
+            two_sm = ("" if "two_sm_bound_ms" not in row else
+                      f", two-SM bound {row['two_sm_bound_ms']:.6f} ms")
+            print(f"timing {name} reps={reps}: event {row['ms']:.4f} ms a "
+                  f"launch, device {dev_us} a launch (profiler), host "
+                  f"{row['host_us']:.3f} us a call of the wrapper, plain "
+                  f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+                  f"({row['bound_by']}){two_sm}")
+    # what one PyTorch call costs the same host: the launch path's yardsticks
+    yardsticks = {}
+    for name, call in (("torch.matmul(a, b)", lambda: torch.matmul(a, b)),
+                       ("torch.empty_like(v)", lambda: torch.empty_like(v))):
+        yardsticks[name] = host_us(call, 10000)
+        print(f"timing {name}: host {yardsticks[name]:.3f} us a call")
     # yardsticks at reps = 1, where one PyTorch call computes the function
     table[("mxu_iter", 1)] = {
         "ms": cuda_ms(lambda: ops.mxu_iter(a, b, 1, 1.0), 200),
@@ -918,13 +1037,110 @@ def phase_timings(dev, launches: dict, errs: dict) -> list[dict]:
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
     print(json.dumps({"timings": {f"{n}@reps={r}": v
-                                  for (n, r), v in table.items()}}))
+                                  for (n, r), v in table.items()},
+                      "host_us_yardsticks": yardsticks}))
     return rows
 
 
+def launch_cost(tree: Path) -> dict:
+    """Host microseconds per call (:func:`host_us`, LAUNCH_COST_CALLS calls
+    a case) of the proxy-block wrappers of the checkout ``tree`` at the
+    main path's shapes, of the pieces a wrapper is made of and of two
+    PyTorch calls as yardsticks; then the wall time of three warm ``run_all()`` calls and of
+    ``time_all(iters=3)`` on the 64-rank trace.  Meant for a fresh process:
+    it imports ``tree``'s ``repro_torch``."""
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.core import blocks
+    from repro_torch.core.synthesize import synthesize
+    from repro_torch.core.trace_ir import TraceStore
+    from repro_torch.kernels import build
+    from repro_torch.kernels.proxy_blocks import ops
+    from repro_torch.workloads import synthetic_rank_traces
+
+    dev = torch.device("cuda", 0)
+    st = blocks.init_state(0, dev)
+    a, b, v = st["a"], st["b"], st["v"]
+    ops.mxu_iter(a, b, 1, 1.0)          # build, load and type the launchers
+    ops.stream_iter(v, 1)
+    launch = build.load(ops.SOURCE).mxu_iter_launch
+    cases = {
+        "mxu_iter reps=5": lambda: ops.mxu_iter(a, b, 5, 1.0),
+        "mxu_iter reps=0": lambda: ops.mxu_iter(a, b, 0, 1.0),
+        "stream_iter reps=5": lambda: ops.stream_iter(v, 5),
+        "stream_iter reps=0": lambda: ops.stream_iter(v, 0),
+        "torch.matmul(a, b)": lambda: torch.matmul(a, b),
+        "torch.empty_like(v)": lambda: torch.empty_like(v),
+        # the pieces of a wrapper, and cheaper stand-ins
+        "build.load(ops.SOURCE)": lambda: build.load(ops.SOURCE),
+        "torch.cuda.current_stream(dev).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "torch._C._cuda_getCurrentRawStream(0)":
+            lambda: torch._C._cuda_getCurrentRawStream(0),
+        "a.shape[-2:] == (128, 128)": lambda: a.shape[-2:] == (128, 128),
+        "a.device.type": lambda: a.device.type,
+        "a.is_cuda": lambda: a.is_cuda,
+        # the ctypes call alone: a batch of 0 returns before any launch
+        "ctypes mxu_iter_launch, batch 0":
+            lambda: launch(0, 0, 0, 0, 0, 0, 1.0, 0),
+    }
+    host = {name: host_us(fn, LAUNCH_COST_CALLS)
+            for name, fn in cases.items()}
+    store = TraceStore.from_rank_traces(synthetic_rank_traces(N_RANKS),
+                                        {"x": N_RANKS})
+    res = synthesize(store=store, device=dev,
+                     out_dir=ROOT / "build" / "launch_cost")
+    res.proxy.run_all()                 # warm
+    run_all_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res.proxy.run_all()             # ends in a synchronise
+        run_all_ms.append(1e3 * (time.perf_counter() - t0))
+    return {"tree": str(tree), "calls": LAUNCH_COST_CALLS, "host_us": host,
+            "run_all_ms": run_all_ms,
+            "time_all_ms": 1e3 * res.proxy.time_all(iters=3)}
+
+
+def phase_launch_cost(trees: list[Path]) -> None:
+    """:func:`launch_cost` of each tree in turn, each in a process of its
+    own, in the order given: name one tree twice and another between
+    (``OLD NEW NEW OLD``) to compare two launch paths on one card."""
+    runs = []
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, __file__, "--launch-cost-child", str(tree)],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            fail(f"launch cost of {tree}: {proc.stderr.strip()[-2000:]}")
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append(run)
+        for name, us in run["host_us"].items():
+            print(f"launch cost {tree}: {name}: {us:.3f} us a call")
+        print(f"launch cost {tree}: run_all " + ", ".join(
+            f"{ms:.2f}" for ms in run["run_all_ms"]) +
+            f" ms; time_all {run['time_all_ms']:.2f} ms")
+    out = ROOT / "build" / "launch_cost.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(runs, indent=1))
+    print(json.dumps({"launch_cost": runs}))
+
+
 def main() -> None:
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--launch-cost", nargs="+", type=Path, metavar="TREE",
+                   help="only time the proxy-block wrappers' host cost per "
+                   "call and run_all of each checkout, in turns")
+    p.add_argument("--launch-cost-child", type=Path, help=argparse.SUPPRESS)
+    args = p.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    if args.launch_cost_child is not None:
+        print(json.dumps(launch_cost(args.launch_cost_child.resolve())))
+        return
+    if args.launch_cost:
+        phase_device()
+        phase_launch_cost(args.launch_cost)
+        return
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     try:
         import repro_torch  # noqa: F401

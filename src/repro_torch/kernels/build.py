@@ -2,10 +2,12 @@
 
 Each ``kernel.cu`` has a plain C interface and is compiled by ``nvcc`` into
 its own shared library, loaded with :mod:`ctypes` (no PyTorch headers, so a
-build takes seconds).  Libraries go under ``build/repro_torch/`` at the root
-of the checkout, named by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one is reused.  :func:`build_all` starts
-one ``nvcc`` per source at once.
+build takes seconds).  Sources include the port's shared headers
+(``wgmma.cuh``) from ``INCLUDE_DIRS``.  Libraries go under
+``build/repro_torch/`` at the root of the checkout, named by a hash of the
+source, of every header in ``INCLUDE_DIRS`` and of the flags, so a changed
+source or header rebuilds and an unchanged one is reused.
+:func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import: the first CUDA launch builds.
 """
@@ -23,6 +25,8 @@ KERNELS_DIR = Path(__file__).resolve().parent
 #: every CUDA source of the port
 SOURCES = tuple(KERNELS_DIR / name / "kernel.cu"
                 for name in ("proxy_blocks", "flash_attention", "ssd"))
+#: where ``#include "..."`` finds the port's shared headers
+INCLUDE_DIRS = (KERNELS_DIR,)
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,6 +49,9 @@ def nvcc_path() -> str:
 
 def library_path(source: Path) -> Path:
     h = hashlib.sha256(Path(source).read_bytes())
+    headers = sorted(p for d in INCLUDE_DIRS for p in Path(d).glob("*.cuh"))
+    for header in headers:
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     name = Path(source).parent.name
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -53,7 +60,8 @@ def library_path(source: Path) -> Path:
 def _start(source: Path, lib: Path) -> subprocess.Popen:
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    includes = [f"-I{d}" for d in INCLUDE_DIRS]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *includes, "-o", str(tmp), str(source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.tmp = tmp  # type: ignore[attr-defined]
@@ -78,8 +86,15 @@ def build_all(sources=SOURCES) -> dict[Path, Path]:
     return libs
 
 
-def load(source: Path) -> ctypes.CDLL:
-    """The loaded library of ``source``, built on first call."""
+def load(source: Path, prototypes: dict | None = None) -> ctypes.CDLL:
+    """The loaded library of ``source``, built on first call.
+
+    ``prototypes`` maps a function of the library to its ``(argtypes,
+    restype)``; they are set once, when the library is loaded.  A library
+    already loaded costs one dict lookup, which every kernel launch pays."""
+    lib = _LIBS.get(source)
+    if lib is not None:
+        return lib
     source = Path(source)
     with _LOCK:
         lib = _LIBS.get(source)
@@ -88,6 +103,9 @@ def load(source: Path) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             lib.cuda_error_name.restype = ctypes.c_char_p
             lib.cuda_error_name.argtypes = [ctypes.c_int]
+            for name, (argtypes, restype) in (prototypes or {}).items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
             _LIBS[source] = lib
         return lib
 

@@ -28,15 +28,9 @@ def reset_counts() -> None:
     LAUNCHES["flash_fwd"] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                         i, f, p]
-        lib.flash_fwd_launch.restype = i
-        lib._typed = True
-    return lib
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: the launcher's C signature, set when the library is loaded
+PROTOTYPES = {"flash_fwd_launch": ([_P, _P, _P, _P] + [_I] * 9 + [_F, _P], _I)}
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -70,7 +64,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0 or t == 0:
         return out
-    lib = _lib()
+    lib = build.load(SOURCE, PROTOTYPES)
     win = int(window) if (causal and window is not None) else 0
     code = lib.flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h,

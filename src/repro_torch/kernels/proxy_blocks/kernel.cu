@@ -6,16 +6,27 @@
 //   Bound:  one (128,128) bf16 product is 4.19 MFLOP against 96 KiB of
 //           input and output, so at reps = 5 the 98,304 bytes bound it
 //           (29 ns at 3.35 TB/s); from a few dozen turns on the tensor-core
-//           FLOPs do (reps = 4096: 17.4 us at 989 TFLOP/s).
-//   Design: one CTA per batch element holds a and b in shared memory
-//           (64 KiB, opted in above the 48 KiB default) and loops over the
-//           turns with no global traffic.  8 warps; warp w owns output rows
-//           [16w, 16w+16), which depend only on the same rows of a, so a
-//           warp reads and rewrites its own strip and never races another.
-//           Each turn is 8 x 8 WMMA bf16 16x16x16 products with f32
-//           accumulators, staged through shared memory to scale and round
-//           to bf16.  One CTA reaches at most 1/132 of the card's tensor
-//           cores; wgmma and TMA are later work.
+//           FLOPs do (reps = 4096: 17.4 us at 989 TFLOP/s).  But each turn
+//           needs the last one's result, so one item's chain can use only
+//           the SMs its rows are split over: two here (below), a bound of
+//           66 x 17.4 us = 1.15 ms at reps = 4096.
+//   Design: row i of a after a turn depends only on row i before it, so
+//           the 128 rows split into two 64-row halves that never talk to
+//           each other: two CTAs per item, CTA (item, h) owns rows
+//           [64h, 64h + 64), one warpgroup of 128 threads, which is the
+//           64-row tile of one wgmma.  b is loaded once into shared memory
+//           (32 KiB, under the 48 KiB default) with plain 16-byte loads in
+//           the 128 B-swizzled layout of wgmma.cuh, as two 64-column
+//           atoms; no TMA, since a tensor map is encoded on the host and
+//           the host's cost per call is what this launch-bound block pays
+//           for.  The CTA's strip of a is loaded once straight into the
+//           registers of wgmma's A fragment and never goes back to memory
+//           between turns.  Each turn is 8 wgmma m64n128k16 (A from
+//           registers, B = the k-slice of b read as MN-major through the
+//           transpose bit, as flash_fwd's O += P V reads V) into one f32
+//           accumulator, then in registers acc * scale rounded to bf16 and
+//           packed pairwise into the next turn's A fragment.  The rounding
+//           per element is __float2bfloat16_rn(__fmul_rn(acc, scale)).
 //
 // stream_iter replaces repro/kernels/proxy_blocks/kernel.py:_stream_iter_kernel
 //           (stream_pallas): v <- v * 0.999999 + 1e-6, reps times per tile.
@@ -35,74 +46,90 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
-using namespace nvcuda;
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int kMM = 128;
-constexpr int kWarps = kMM / 16;            // one 16-row strip per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 16;
-// a and b (bf16) plus one f32 staging strip per warp
-constexpr int kMxuSmem = 2 * kMM * kMM * 2 + kWarps * kTile * kMM * 4;
+constexpr int kRows = 64;                   // rows of a per CTA: one m64 tile
+constexpr int kThreads = 128;               // one warpgroup
+constexpr int kKSteps = kMM / 16;           // k16 steps of one product
+constexpr int kRowBytes = 128;              // one row of a 64-column atom
+constexpr int kAtomBytes = kMM * kRowBytes; // b's 128 rows x 64 columns
+// b as two atoms, plus slack to align them to 1024 B
+constexpr int kMxuSmem = 2 * kAtomBytes + 1024;
+
+// A-fragment register r of k-step kk sits at row (r & 1) * 8 and column
+// 16 kk + (r >> 1) * 8 from the thread's first element (wgmma.cuh).
+__device__ __forceinline__ int frag_offset(int kk, int r) {
+  return (r & 1) * 8 * kMM + 16 * kk + (r >> 1) * 8;
+}
 
 __global__ void __launch_bounds__(kThreads)
 mxu_iter_kernel(const __nv_bfloat16* __restrict__ a,
                 const __nv_bfloat16* __restrict__ b,
                 __nv_bfloat16* __restrict__ out,
                 long long b_stride, int reps, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sb = sa + kMM * kMM;
-  float* stage = reinterpret_cast<float*>(sb + kMM * kMM);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sb = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const long long item = blockIdx.x / 2;
+  const int half = blockIdx.x % 2;
 
-  const long long item = blockIdx.x;
-  const uint4* ga = reinterpret_cast<const uint4*>(a + item * kMM * kMM);
+  // b into its two swizzled atoms: 16-byte chunk c of row k (8 columns)
+  // goes to atom c / 8, chunk (c % 8) ^ (k % 8) of that atom's row k
   const uint4* gb = reinterpret_cast<const uint4*>(b + item * b_stride);
-  uint4* sa4 = reinterpret_cast<uint4*>(sa);
-  uint4* sb4 = reinterpret_cast<uint4*>(sb);
-  constexpr int kVec = kMM * kMM / 8;        // 16-byte vectors per matrix
-  for (int i = threadIdx.x; i < kVec; i += kThreads) {
-    sa4[i] = ga[i];
-    sb4[i] = gb[i];
+  for (int i = threadIdx.x; i < kMM * kMM / 8; i += kThreads) {
+    const int k = i / 16, c = i % 16;
+    *reinterpret_cast<uint4*>(sb + (c / 8) * kAtomBytes + k * kRowBytes +
+                              ((c % 8) ^ (k % 8)) * 16) = gb[i];
   }
+
+  // the CTA's 64 rows of a, straight into the A fragment: thread t of warp
+  // w holds rows 16w + (t % 32) / 4 (+8), columns 2 (t % 4) (+1) of each
+  // 16-column k-step (+8)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long first = item * kMM * kMM +
+                          (kRows * half + 16 * warp + lane / 4) * kMM +
+                          2 * (lane % 4);
+  uint32_t pa[4 * kKSteps];
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[4 * kk + r] = *reinterpret_cast<const uint32_t*>(
+          a + first + frag_offset(kk, r));
+
+  fence_proxy_async_shared();
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = warp * kTile;
-  float* wstage = stage + warp * kTile * kMM;
-
-  for (int r = 0; r < reps; ++r) {
-    wmma::fragment<wmma::accumulator, kTile, kTile, kTile, float> acc[kMM / kTile];
+  const uint32_t sb0 = smem_u32(sb);
+  float acc[kMM / 2];
 #pragma unroll
-    for (int j = 0; j < kMM / kTile; ++j) wmma::fill_fragment(acc[j], 0.0f);
+  for (int j = 0; j < kMM / 2; ++j) acc[j] = 0.f;
+  for (int turn = 0; turn < reps; ++turn) {
+    wgmma_fence();                      // pa and acc were just written
 #pragma unroll
-    for (int k = 0; k < kMM; k += kTile) {
-      wmma::fragment<wmma::matrix_a, kTile, kTile, kTile, __nv_bfloat16,
-                     wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, sa + row0 * kMM + k, kMM);
+    for (int kk = 0; kk < kKSteps; ++kk)
+      wgmma_rs_t<kMM>(acc, pa + 4 * kk,
+                      make_desc(sb0 + kk * 16 * kRowBytes, kAtomBytes,
+                                8 * kRowBytes, 1), kk);
+    wgmma_commit();
+    wgmma_wait_all();
 #pragma unroll
-      for (int j = 0; j < kMM / kTile; ++j) {
-        wmma::fragment<wmma::matrix_b, kTile, kTile, kTile, __nv_bfloat16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sb + k * kMM + j * kTile, kMM);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kMM / kTile; ++j)
-      wmma::store_matrix_sync(wstage + j * kTile, acc[j], kMM, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < kTile * kMM; i += 32)
-      sa[row0 * kMM + i] = __float2bfloat16_rn(__fmul_rn(wstage[i], scale));
-    __syncthreads();
+    for (int j = 0; j < kMM / 2; j += 2)
+      pa[j / 2] = pack_bf16(__fmul_rn(acc[j], scale),
+                            __fmul_rn(acc[j + 1], scale));
   }
 
-  uint4* go = reinterpret_cast<uint4*>(out + item * kMM * kMM);
-  for (int i = threadIdx.x; i < kVec; i += kThreads) go[i] = sa4[i];
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<uint32_t*>(out + first + frag_offset(kk, r)) =
+          pa[4 * kk + r];
 }
 
 constexpr int kStreamThreads = 256;
@@ -130,15 +157,8 @@ extern "C" {
 // every item (b_stride = 0) or one per item (b_stride = 128 * 128).
 int mxu_iter_launch(const void* a, const void* b, void* out, long long batch,
                     long long b_stride, int reps, float scale, void* stream) {
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mxu_iter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMxuSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
-  }
   if (batch <= 0) return 0;
-  mxu_iter_kernel<<<static_cast<unsigned>(batch), kThreads, kMxuSmem,
+  mxu_iter_kernel<<<static_cast<unsigned>(2 * batch), kThreads, kMxuSmem,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
       static_cast<__nv_bfloat16*>(out), b_stride, reps, scale);

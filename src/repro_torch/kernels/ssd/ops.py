@@ -31,15 +31,9 @@ def reset_counts() -> None:
     LAUNCHES["ssd_diag"] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    if not getattr(lib, "_typed", False):
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.ssd_diag_launch.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i,
-                                        i, i, p]
-        lib.ssd_diag_launch.restype = i
-        lib._typed = True
-    return lib
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: the launcher's C signature, set when the library is loaded
+PROTOTYPES = {"ssd_diag_launch": ([_P] * 6 + [_LL] + [_I] * 7 + [_P], _I)}
 
 
 def ssd_diag_block(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
@@ -80,7 +74,7 @@ def ssd_diag_block(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
     out = torch.empty(xc.shape, dtype=out_dtype, device=xc.device)
     if out.numel() == 0:
         return out
-    lib = _lib()
+    lib = build.load(SOURCE, PROTOTYPES)
     code = lib.ssd_diag_launch(
         xc.data_ptr(), dtc.data_ptr(), cum.data_ptr(), bc.data_ptr(),
         cc.data_ptr(), out.data_ptr(), b * c, q, h, g, n, p,

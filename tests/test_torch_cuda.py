@@ -6,11 +6,13 @@ machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -s -m cuda tests/test_torch_cuda.py
 
 The flash and SSD kernels are held element by element to
-``tolerance.KERNEL_TOL``.  Faults planted in copies of their sources must
-fail that limit by more than 10 times at the main path's shapes: a dropped
-key tile and an accumulator that is not rescaled when the running maximum
-grows (flash, Llama 3.2 3B prefill), a skipped key block and plain TF32,
-the low part's product dropped (SSD, Mamba2 2.7B prefill).
+``tolerance.KERNEL_TOL``, ``mxu_iter`` to sqrt(reps) bf16 ulps of its
+largest output.  Faults planted in copies of their sources must fail that
+limit by more than 10 times at the main path's shapes: a dropped key tile
+and an accumulator that is not rescaled when the running maximum grows
+(flash, Llama 3.2 3B prefill), a skipped key block and plain TF32, the low
+part's product dropped (SSD, Mamba2 2.7B prefill), one of a product's
+eight k-steps dropped and the last turn skipped (``mxu_iter``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import blocks
 from repro_torch.kernels import tolerance
 from repro_torch.kernels.flash_attention import ops as fops, ref as fref
 from repro_torch.kernels.proxy_blocks import ops as bops, ref as bref
@@ -59,6 +62,16 @@ SSD_MUTANTS = {
     # plain TF32: the low part's product dropped (bf16 x, the serve path)
     "tf32": ("  mma_tf32(c, alo, b);\n", ""),
 }
+#: faults planted in the mxu_iter kernel, as (text, replacement)
+MXU_MUTANTS = {
+    # the last of a product's eight k16 steps dropped, every turn
+    "drop_kstep": ("      wgmma_rs_t<kMM>(acc, pa + 4 * kk,\n",
+                   "      if (kk != kKSteps - 1) "
+                   "wgmma_rs_t<kMM>(acc, pa + 4 * kk,\n"),
+    # one turn fewer than asked for
+    "skip_last_turn": ("  for (int turn = 0; turn < reps; ++turn) {\n",
+                       "  for (int turn = 0; turn < reps - 1; ++turn) {\n"),
+}
 
 
 #: bf16 outputs of one turn: at most one bf16 ulp (8 significant bits) of
@@ -90,13 +103,26 @@ def _bf16(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(x).to(torch.bfloat16)
 
 
-def assert_mxu_close(got, want, reps: int = 1) -> None:
+def mxu_excess(got, want, reps: int = 1, min_top: float = 0.5) -> float:
+    """max|got - want| over its limit, sqrt(reps) * MXU_RTOL * max|want|:
+    at most 1 passes.  ``want`` must reach ``min_top`` or the comparison
+    says nothing (the main path's own state shrinks about 20-fold a turn,
+    so it is held with a smaller ``min_top``)."""
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     top = float(np.abs(want).max())
-    assert top >= 0.5, f"outputs decayed to {top}: the comparison says nothing"
+    assert top >= min_top, f"outputs decayed to {top}: the comparison says nothing"
     err = float(np.abs(got - want).max())
-    assert err <= max(reps, 1) ** 0.5 * MXU_RTOL * top, (err, top)
+    return err / (max(reps, 1) ** 0.5 * MXU_RTOL * top)
+
+
+def assert_mxu_close(got, want, reps: int = 1, min_top: float = 0.5) -> None:
+    excess = mxu_excess(got, want, reps, min_top)
+    assert excess <= 1, f"max|got - want| is {excess:.3g} times the limit"
+
+
+#: turns per piece of the long chain's check (reps 4096 in 64 launches)
+MXU_PIECE = 64
 
 
 @pytest.fixture(autouse=True)
@@ -227,19 +253,71 @@ def test_cuda_zoo_empty_inputs_launch_nothing_and_views_are_copied():
                        fops.flash_attention_fwd(q, k, v))
 
 
+def _cpu(t: torch.Tensor) -> np.ndarray:
+    return t.float().cpu().numpy()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("reps", [1, 5, 7, 32])
+@pytest.mark.parametrize("reps", [0, 1, 5, 7, 32, 4096])
 def test_cuda_mxu_kernel_matches_plain(reps):
+    """One item, a batch of 3 with a shared ``b`` and with one ``b`` per
+    item (the per-rank-seeds replay), and the main path's own state."""
+    cases = []
+    for scale in (bref.MXU_SCALE, 1.0):
+        for batch, shared in (((), True), ((3,), True), ((3,), False)):
+            a, b = _mxu_inputs(reps + len(batch) + shared, scale, batch)
+            b = b[0] if batch and shared else b
+            cases.append((_bf16(a).cuda(), _bf16(b).cuda(), scale, 0.5))
+    st = blocks.init_state(0, "cuda")
+    if reps <= 7:           # it shrinks about 20-fold a turn
+        cases.append((st["a"], st["b"], 1.0, 1e-30))
+    for a, b, scale, min_top in cases:
+        got = bops.mxu_iter(a, b, reps, scale)
+        if reps == 0:
+            assert torch.equal(got, a)
+            continue
+        want = bref.mxu_ref(a, b, reps, scale)
+        assert_mxu_close(_cpu(got), _cpu(want), reps, min_top)
+        # the last turn alone, at the one-turn limit
+        last = bref.mxu_ref(bops.mxu_iter(a, b, reps - 1, scale), b, 1, scale)
+        assert_mxu_close(_cpu(got), _cpu(last), 1, min_top)
+        if reps > MXU_PIECE:
+            # sqrt(4096) ulps is half the largest output, so the long chain
+            # is also held in pieces: the kernel is deterministic, so one
+            # launch of reps turns equals reps / 64 launches of 64 bit for
+            # bit, and each piece is held to the plain chain restarted from
+            # the kernel's own output, at the 64-turn limit
+            x = a
+            for _ in range(reps // MXU_PIECE):
+                nxt = bops.mxu_iter(x, b, MXU_PIECE, scale)
+                assert_mxu_close(_cpu(nxt), _cpu(bref.mxu_ref(
+                    x, b, MXU_PIECE, scale)), MXU_PIECE, min_top)
+                x = nxt
+            assert torch.equal(got, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reps", [5, 32])
+def test_cuda_mxu_mutants_fail_the_limit(tmp_path, monkeypatch, reps):
+    """The kernel and two faulty copies of its source on orthogonal-``b``
+    inputs at both scales: the kernel within sqrt(reps) * 2^-7 *
+    max|plain|, a dropped k-step and a skipped turn each more than 10
+    times over it (CPU estimate of the two faults: 36x and 71x at reps 5,
+    22x and 32x at reps 32)."""
+    ins = []
     for scale in (bref.MXU_SCALE, 1.0):
         a, b = _mxu_inputs(reps, scale)
         a, b = _bf16(a).cuda(), _bf16(b).cuda()
-        got = bops.mxu_iter(a, b, reps, scale)
-        want = bref.mxu_ref(a, b, reps, scale)
-        assert_mxu_close(got.float().cpu().numpy(),
-                         want.float().cpu().numpy(), reps)
-        # the last turn alone, at the one-turn limit
-        last = bref.mxu_ref(bops.mxu_iter(a, b, reps - 1, scale), b, 1, scale)
-        assert_mxu_close(got.float().cpu().numpy(), last.float().cpu().numpy())
+        ins.append((a, b, scale, _cpu(bref.mxu_ref(a, b, reps, scale))))
+
+    def run():
+        return max(mxu_excess(_cpu(bops.mxu_iter(a, b, reps, scale)), want,
+                              reps) for a, b, scale, want in ins)
+
+    worst = _with_mutants(tmp_path, monkeypatch, bops, MXU_MUTANTS, run)
+    print(f"reps {reps}: worst error over its limit {worst}")
+    assert worst["kernel"] <= 1
+    assert worst["drop_kstep"] > 10 and worst["skip_last_turn"] > 10
 
 
 @pytest.mark.cuda
@@ -275,4 +353,28 @@ def test_cuda_empty_inputs_launch_nothing():
     b = torch.empty(bref.MM, bref.MM, dtype=torch.bfloat16, device="cuda")
     assert bops.mxu_iter(a, b, 3).shape == a.shape
     assert bops.stream_iter(torch.empty(0, 1024, device="cuda"), 3).numel() == 0
+    assert bops.LAUNCHES == {"mxu_iter": 0, "stream_iter": 0}
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_bad_input_and_launch_nothing():
+    """A CUDA tensor launches or raises: a wrong device, dtype or shape, or
+    reps < 0, raises before any launch, and nothing falls back to the
+    plain version."""
+    bops.reset_counts()
+    a = torch.zeros(bref.MM, bref.MM, dtype=torch.bfloat16, device="cuda")
+    bad_mxu = [((a, a.cpu(), 1), ValueError), ((a.cpu(), a, 1), ValueError),
+               ((a.float(), a, 1), TypeError), ((a, a.float(), 1), TypeError),
+               ((a[:64], a, 1), ValueError), ((a, a[:, :64], 1), ValueError),
+               ((a, a.expand(2, -1, -1), 1), ValueError),
+               ((a, a, -1), ValueError)]
+    for args, err in bad_mxu:
+        with pytest.raises(err):
+            bops.mxu_iter(*args)
+    v = torch.zeros(2048, device="cuda")
+    bad_stream = [((v.double(), 1), TypeError), ((v[:1000], 1), ValueError),
+                  ((v[0], 1), ValueError), ((v, -1), ValueError)]
+    for args, err in bad_stream:
+        with pytest.raises(err):
+            bops.stream_iter(*args)
     assert bops.LAUNCHES == {"mxu_iter": 0, "stream_iter": 0}

@@ -4,7 +4,10 @@ themselves are tested in ``tests/test_torch_cuda.py``, which imports no JAX
 so that it runs on a card."""
 from __future__ import annotations
 
+import ctypes
+import re
 import shutil
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,9 +42,13 @@ def test_mxu_ref_block_form_matches_repeated_mxu_vmem(reps):
     assert_mxu_close(got.float().numpy(), st["a"], reps)
 
 
-@pytest.mark.parametrize("mutant", ["two_turns", "bf16_sums", "no_scale"])
+@pytest.mark.parametrize("mutant", ["two_turns", "bf16_sums", "no_scale",
+                                    "drop_kstep"])
 def test_mxu_tolerance_rejects_wrong_arithmetic(mutant):
-    """The limit above fails each plausible kernel fault at reps=5."""
+    """The limit above fails each plausible kernel fault at reps=5;
+    ``drop_kstep`` is the CPU twin of the fault that
+    ``test_cuda_mxu_mutants_fail_the_limit`` plants in the CUDA kernel (the
+    last 16 of the 128 terms of every product left out)."""
     a, b = _mxu_inputs(5)
     a, b = _bf16(a), _bf16(b)
     want = ref.mxu_ref(a, b, 5).float().numpy()
@@ -49,6 +56,10 @@ def test_mxu_tolerance_rejects_wrong_arithmetic(mutant):
         got = ref.mxu_ref(a, b, 2)
     elif mutant == "no_scale":
         got = ref.mxu_ref(a, b, 5, scale=1.0)
+    elif mutant == "drop_kstep":
+        b_cut = b.clone()
+        b_cut[-16:] = 0
+        got = ref.mxu_ref(a, b_cut, 5)
     else:           # each partial sum rounded to bf16
         got = a
         for _ in range(5):
@@ -127,6 +138,23 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     assert ops.LAUNCHES == {"mxu_iter": 0, "stream_iter": 0}
 
 
+@pytest.mark.parametrize("reps", [1, 5, 32])
+@pytest.mark.parametrize("per_item_b", [False, True])
+def test_mxu_ref_rows_depend_only_on_their_own_rows(reps, per_item_b):
+    """Row i of ``a`` after any number of turns depends only on row i
+    before them: each 64-row half of ``a`` run alone gives the same half of
+    the whole run, bit for bit.  The CUDA kernel rests on this: it runs the
+    two halves of an item on two SMs that never exchange a value."""
+    a, b = _mxu_inputs(reps, scale=1.0, batch=(2,))
+    a, b = _bf16(a), _bf16(b)
+    if not per_item_b:
+        b = b[0]
+    whole = ref.mxu_ref(a, b, reps, scale=1.0)
+    for rows in (slice(0, 64), slice(64, 128)):
+        half = ref.mxu_ref(a[:, rows], b, reps, scale=1.0)
+        assert torch.equal(half, whole[:, rows])
+
+
 def test_batched_mxu_ref_is_per_item():
     a, b = _mxu_inputs(3, scale=1.0, batch=(2,))
     got = ops.mxu_iter(_bf16(a), _bf16(b), 2, scale=1.0)
@@ -170,3 +198,67 @@ def test_library_path_keys_on_source(tmp_path):
     src.write_text("// two\n")
     assert build.library_path(src) != first
     assert first.parent == build.BUILD_DIR
+
+
+#: C parameter types of the launchers, as ctypes types
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "long long": ctypes.c_longlong, "int": ctypes.c_int,
+            "float": ctypes.c_float}
+
+
+@pytest.mark.parametrize("name", ["proxy_blocks", "flash_attention", "ssd"])
+def test_prototypes_match_the_launchers_in_the_source(name):
+    """Each wrapper's ctypes prototypes name every ``*_launch`` function of
+    its source with the C parameter types it declares: a prototype one
+    argument short would shift every pointer after it on the card."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+    text = mod.SOURCE.read_text()
+    found = {}
+    for fn, params in re.findall(r"^int (\w+_launch)\(([^)]*)\)", text, re.M):
+        kinds = [" ".join(p.split()[:-1]) for p in params.split(",")]
+        found[fn] = ([_C_TYPES[k] for k in kinds], ctypes.c_int)
+    assert found == mod.PROTOTYPES
+
+
+def test_load_types_the_library_once_and_then_only_looks_it_up(
+        tmp_path, monkeypatch):
+    """The first load builds, opens and types the library; later loads of
+    the same source return it without building or taking the lock."""
+    built = []
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+            self.cuda_error_name = types.SimpleNamespace()
+            self.go_launch = types.SimpleNamespace()
+
+    src = tmp_path / "k" / "kernel.cu"
+
+    def fake_build_all(sources):
+        built.append(sources)
+        return {src: tmp_path / "lib.so"}
+
+    monkeypatch.setattr(build, "build_all", fake_build_all)
+    monkeypatch.setattr(build.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(build, "_LIBS", {})
+    proto = {"go_launch": ([ctypes.c_void_p, ctypes.c_int], ctypes.c_int)}
+    lib = build.load(src, proto)
+    assert built == [[src]] and lib.path == str(tmp_path / "lib.so")
+    assert lib.go_launch.argtypes == [ctypes.c_void_p, ctypes.c_int]
+    assert lib.go_launch.restype is ctypes.c_int
+    monkeypatch.setattr(build, "_LOCK", None)   # a second load must not lock
+    assert build.load(src, proto) is lib and len(built) == 1
+
+
+def test_library_path_keys_on_shared_headers(tmp_path, monkeypatch):
+    """An edited shared header rebuilds the sources: the library's name
+    hashes every header of ``INCLUDE_DIRS`` too."""
+    monkeypatch.setattr(build, "INCLUDE_DIRS", (tmp_path,))
+    (tmp_path / "shared.cuh").write_text("// one\n")
+    src = tmp_path / "proxy_blocks" / "kernel.cu"
+    src.parent.mkdir()
+    src.write_text('#include "shared.cuh"\n')
+    first = build.library_path(src)
+    (tmp_path / "shared.cuh").write_text("// two\n")
+    assert build.library_path(src) != first

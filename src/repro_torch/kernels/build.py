@@ -1,6 +1,7 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Each ``kernel.cu`` has a plain C interface and is compiled by ``nvcc`` into
+Each source (a ``kernel.cu``, and the flash backward's ``backward.cu``)
+has a plain C interface and is compiled by ``nvcc`` into
 its own shared library, loaded with :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds).  Sources include the port's shared headers
 (``wgmma.cuh``) from ``INCLUDE_DIRS``.  Libraries go under
@@ -23,8 +24,9 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 #: every CUDA source of the port
-SOURCES = tuple(KERNELS_DIR / name / "kernel.cu"
-                for name in ("proxy_blocks", "flash_attention", "ssd"))
+SOURCES = tuple(KERNELS_DIR / name for name in (
+    "proxy_blocks/kernel.cu", "flash_attention/kernel.cu",
+    "flash_attention/backward.cu", "ssd/kernel.cu"))
 #: where ``#include "..."`` finds the port's shared headers
 INCLUDE_DIRS = (KERNELS_DIR,)
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
@@ -53,7 +55,9 @@ def library_path(source: Path) -> Path:
     for header in headers:
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    name = Path(source).parent.name
+    source = Path(source)
+    name = source.parent.name + ("" if source.stem == "kernel"
+                                 else f"_{source.stem}")
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

@@ -41,6 +41,10 @@
 //   tile down, so the causal tiles with the most work start first and the
 //   short ones fill the tail.
 //
+//   With a non-null lse (the training forward), the consumers also write
+//   each row's log-sum-exp, m + log l, in natural-log units: m is kept in
+//   log2-scaled units (exp2 above), so it is multiplied by ln 2 first.
+//
 //   Hazards, and what the design does about each:
 //   - TMA swizzle against the wgmma descriptor.  A bf16 row of d 128 is
 //     256 B, wider than the 128 B swizzle span, so every tile is loaded as
@@ -193,8 +197,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
-                      bf16* __restrict__ out, int s, int t, int h, int g,
-                      int causal, int window, float scale) {
+                      bf16* __restrict__ out, float* __restrict__ lse, int s,
+                      int t, int h, int g, int causal, int window,
+                      float scale) {
   using W = Swz<D>;
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -359,6 +364,12 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         *reinterpret_cast<uint32_t*>(o1 + col) =
             pack_bf16(oacc[4 * j + 2] / den1, oacc[4 * j + 3] / den1);
     }
+    if (lse != nullptr && quad == 0) {
+      constexpr float kLn2 = 0.6931471805599453f;
+      float* l_row = lse + (static_cast<long long>(bi) * s + qpos0) * h + head;
+      if (qpos0 < s) l_row[0] = m0 * kLn2 + logf(den0);
+      if (qpos1 < s) l_row[8LL * h] = m1 * kLn2 + logf(den1);
+    }
   }
 }
 
@@ -374,8 +385,8 @@ template <int D>
 __global__ void __launch_bounds__(kBQ)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int s, int t, int h, int g, int causal, int window,
-                     float scale) {
+                     float* __restrict__ lse, int s, int t, int h, int g,
+                     int causal, int window, float scale) {
   extern __shared__ __align__(16) float fsm[];
   float* sQ = fsm;                           // kBQ x (D + 1)
   float* sK = sQ + kBQ * (D + 1);            // kF32Keys x D
@@ -447,6 +458,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l_run, 1e-30f);
 #pragma unroll
     for (int c = 0; c < D; ++c) o[c] = acc[c] / den;
+    if (lse != nullptr) lse[(bi * s + qpos) * h + head] = m_run + logf(den);
   }
 }
 
@@ -499,9 +511,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int heads, int len, int b) {
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
-                int s, int t, int h, int g, int causal, int window, float scale,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                float* lse, int b, int s, int t, int h, int g, int causal,
+                int window, float scale, cudaStream_t stream) {
   static bool set = false;
   if (!set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -524,17 +536,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int b,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(h, b, (s + kTile - 1) / kTile);
   flash_fwd_bf16_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(out), s, t, h, g, causal, window, scale);
+      tq, tk, tv, static_cast<bf16*>(out), lse, s, t, h, g, causal, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int s, int t, int h, int g, int is_bf16, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int b, int s, int t, int h, int g, int is_bf16,
+           int causal, int window, float scale, cudaStream_t stream) {
   if (is_bf16)
-    return launch_bf16<D>(q, k, v, out, b, s, t, h, g, causal, window, scale,
-                          stream);
+    return launch_bf16<D>(q, k, v, out, lse, b, s, t, h, g, causal, window,
+                          scale, stream);
   static bool set = false;
   if (!set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -546,8 +559,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((s + kBQ - 1) / kBQ, h, b);
   flash_fwd_f32_kernel<D><<<grid, kBQ, f32_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), s, t, h, g,
-      causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, s, t, h,
+      g, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -557,17 +570,20 @@ extern "C" {
 
 // q, out: (b, s, h, d); k, v: (b, t, g, d); all bf16 (is_bf16 = 1) or all
 // f32; h % g == 0; d in {16, 32, 64, 128}; window <= 0 means none (and is
-// ignored unless causal, as in the Pallas kernel).
+// ignored unless causal, as in the Pallas kernel).  lse: null, or f32
+// (b, s, h) to receive each row's log-sum-exp (natural log).
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
-                     int b, int s, int t, int h, int g, int d, int is_bf16,
-                     int causal, int window, float scale, void* stream) {
+                     void* lse, int b, int s, int t, int h, int g, int d,
+                     int is_bf16, int causal, int window, float scale,
+                     void* stream) {
   if (b <= 0 || s <= 0 || t <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (d) {
-    case 16: return launch<16>(q, k, v, out, b, s, t, h, g, is_bf16, causal, window, scale, st);
-    case 32: return launch<32>(q, k, v, out, b, s, t, h, g, is_bf16, causal, window, scale, st);
-    case 64: return launch<64>(q, k, v, out, b, s, t, h, g, is_bf16, causal, window, scale, st);
-    case 128: return launch<128>(q, k, v, out, b, s, t, h, g, is_bf16, causal, window, scale, st);
+    case 16: return launch<16>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, scale, st);
+    case 32: return launch<32>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, scale, st);
+    case 64: return launch<64>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, scale, st);
+    case 128: return launch<128>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,11 @@
-"""Wrapper of the flash-attention forward CUDA kernel (``kernel.cu``).
+"""Wrappers of the flash-attention CUDA kernels: the forward
+(``kernel.cu``, ``flash_fwd``) and the backward (``backward.cu``,
+``flash_bwd``).
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises (no fallback).  ``LAUNCHES`` counts kernel launches,
-one per launch and nowhere else.
+the kernel or raises (no fallback).  ``LAUNCHES`` counts wrapper calls that
+launched their kernel, one per call and nowhere else (``flash_bwd`` is
+three kernels on one stream: D = rowsum(dO o O), dQ, and dK/dV).
 """
 from __future__ import annotations
 
@@ -13,63 +16,116 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref, attention_ref,
+)
 from repro_torch.kernels.proxy_blocks.ops import _aligned, _stream_handle
 
 SOURCE = Path(__file__).resolve().parent / "kernel.cu"
+BWD_SOURCE = Path(__file__).resolve().parent / "backward.cu"
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches since the last :func:`reset_counts`
-LAUNCHES = {"flash_fwd": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
 
 
 def reset_counts() -> None:
-    LAUNCHES["flash_fwd"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the launcher's C signature, set when the library is loaded
-PROTOTYPES = {"flash_fwd_launch": ([_P, _P, _P, _P] + [_I] * 9 + [_F, _P], _I)}
+#: the launchers' C signatures, set when a library is loaded
+PROTOTYPES = {"flash_fwd_launch": ([_P] * 5 + [_I] * 9 + [_F, _P], _I)}
+BWD_PROTOTYPES = {"flash_bwd_launch": ([_P] * 10 + [_I] * 9 + [_F, _P], _I)}
+
+
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           *same_as_q: torch.Tensor) -> tuple[int, int, int, int, int, int]:
+    """Raise on what the kernels do not take; return (b, s, t, h, g, d)."""
+    ins = (q, k, v) + same_as_q
+    if q.device.type != "cuda" or any(x.device != q.device for x in ins):
+        raise ValueError(f"{name}: inputs on {[str(x.device) for x in ins]}; "
+                         "all must be CPU or on one CUDA device")
+    if q.dtype not in DTYPES or any(x.dtype != q.dtype for x in ins):
+        raise TypeError(f"{name} takes f32 or bf16 q, k, v (and out, dout) "
+                        f"of one dtype, got {[x.dtype for x in ins]}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or any(
+            x.shape != q.shape for x in same_as_q):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, out/dout "
+                         f"{[tuple(x.shape) for x in same_as_q]}")
+    b, s, h, d = q.shape
+    t, g = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or g == 0 or h % g:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not match (h % g == 0)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
+    return b, s, t, h, g, d
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int | None = None
-                        ) -> torch.Tensor:
-    """q: (b,s,h,d); k/v: (b,t,g,d) -> (b,s,h,d) in q's dtype.
+                        causal: bool = True, window: int | None = None,
+                        return_lse: bool = False):
+    """q: (b,s,h,d); k/v: (b,t,g,d) -> (b,s,h,d) in q's dtype, and with
+    ``return_lse`` also each row's log-sum-exp (b,s,h) in f32 (natural log;
+    what the backward needs).  Without it the kernel writes no LSE.
 
     ``window`` limits a causal row to its last ``window`` keys and is
     ignored without ``causal``, as in the reference's kernel."""
     if all(x.device.type == "cpu" for x in (q, k, v)):
-        return attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention_fwd: q on {q.device}, k on "
-                         f"{k.device}, v on {v.device}; all must be CPU or on "
-                         "one CUDA device")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fwd takes f32 or bf16 q, k, v of "
-                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    b, s, h, d = q.shape
-    t, g = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or g == 0 or h % g:
-        raise ValueError(f"flash_attention_fwd: q {tuple(q.shape)} and k "
-                         f"{tuple(k.shape)} do not match (h % g == 0)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {d} not in "
-                         f"{HEAD_DIMS}")
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             return_lse=return_lse)
+    b, s, t, h, g, d = _check("flash_attention_fwd", q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
-    if out.numel() == 0 or t == 0:
-        return out
-    lib = build.load(SOURCE, PROTOTYPES)
+    lse = (torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if out.numel() and t:
+        lib = build.load(SOURCE, PROTOTYPES)
+        win = int(window) if (causal and window is not None) else 0
+        code = lib.flash_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, s, t, h, g, d,
+            int(q.dtype == torch.bfloat16), int(causal), win,
+            1.0 / math.sqrt(d), _stream_handle(q))
+        build.check(lib, code, "flash_fwd")
+        LAUNCHES["flash_fwd"] += 1
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None):
+    """Gradients (dq (b,s,h,d), dk, dv (b,t,g,d)) of the attention whose
+    forward gave ``out`` and ``lse`` (:func:`flash_attention_fwd` with
+    ``return_lse``), for the output gradient ``dout``; dk and dv sum the
+    query heads of each KV group.  Outputs in q's dtype."""
+    if all(x.device.type == "cpu" for x in (q, k, v, out, lse, dout)):
+        return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                 window=window)
+    b, s, t, h, g, d = _check("flash_attention_bwd", q, k, v, out, dout)
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b, s, h)):
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}; want ({b}, {s}, {h}) "
+                         "f32 beside q")
+    q, k, v, out, lse, dout = (_aligned(x) for x in (q, k, v, out, lse, dout))
+    if not (s and t and b and h):
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+    lib = build.load(BWD_SOURCE, BWD_PROTOTYPES)
     win = int(window) if (causal and window is not None) else 0
-    code = lib.flash_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h,
-        g, d, int(q.dtype == torch.bfloat16), int(causal), win,
-        1.0 / math.sqrt(d), _stream_handle(q))
-    build.check(lib, code, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
-    return out
+    code = lib.flash_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, s, t, h, g, d,
+        int(q.dtype == torch.bfloat16), int(causal), win, 1.0 / math.sqrt(d),
+        _stream_handle(q))
+    build.check(lib, code, "flash_bwd")
+    LAUNCHES["flash_bwd"] += 1
+    return dq, dk, dv

@@ -1,10 +1,17 @@
-"""Wrapper of the SSD diagonal-block CUDA kernel (``kernel.cu``).
+"""Wrapper of the SSD diagonal-block CUDA kernel (``kernel.cu``), and its
+gradient.
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
 the kernel or raises (no fallback).  ``LAUNCHES`` counts kernel launches,
 one per launch and nowhere else.  The reference's wrapper cuts the heads
 into slabs of at most 8 (a VMEM limit of the TPU); this one launches once
 for all of them.
+
+:func:`ssd_diag` is the differentiable entry: under autograd its forward is
+:func:`ssd_diag_block` (the kernel on the card) and its backward recomputes
+the plain version under autograd and differentiates it.  That is plain
+PyTorch, as the reference's own backward is autodiff of its XLA einsums
+(``repro/models/ssm.py``); a hand-written SSD backward is later work.
 """
 from __future__ import annotations
 
@@ -83,3 +90,37 @@ def ssd_diag_block(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
     build.check(lib, code, "ssd_diag")
     LAUNCHES["ssd_diag"] += 1
     return out
+
+
+class _SSDDiag(torch.autograd.Function):
+    """Forward: the kernel (or, for CPU tensors, the plain version).
+    Backward: the plain version recomputed and differentiated.  Saves only
+    the inputs."""
+
+    @staticmethod
+    def forward(ctx, xc, dtc, cum, bc, cc, r, out_dtype):
+        ctx.save_for_backward(xc, dtc, cum, bc, cc)
+        ctx.r, ctx.out_dtype = r, out_dtype
+        return ssd_diag_block(xc, dtc, cum, bc, cc, r, out_dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        ins = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(n) for x, n in zip(ins, need)]
+            y = ssd_diag_ref(*leaves, ctx.r, ctx.out_dtype)
+            wanted = [x for x, n in zip(leaves, need) if n]
+            got = iter(torch.autograd.grad(y, wanted, gy)) if wanted else None
+        return tuple(next(got) if n else None for n in need) + (None, None)
+
+
+def ssd_diag(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
+             bc: torch.Tensor, cc: torch.Tensor, r: int,
+             out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """:func:`ssd_diag_block`, differentiable: without autograd (no input
+    needs a gradient, or grad mode is off) exactly ``ssd_diag_block``."""
+    ins = (xc, dtc, cum, bc, cc)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in ins):
+        return _SSDDiag.apply(xc, dtc, cum, bc, cc, r, out_dtype)
+    return ssd_diag_block(xc, dtc, cum, bc, cc, r, out_dtype)

@@ -21,7 +21,9 @@ def ssd_diag_ref(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
     dec = cumg[:, :, :, None] - cumg[:, :, None]           # (b,c,q,k,g,r)
     iq = torch.arange(q, device=xc.device)
     causal = (iq[:, None] >= iq[None, :])[:, :, None, None]
-    lmask = torch.where(causal, torch.exp(dec), 0.0)
+    # masked before exp: for k > q the exponent is positive and can
+    # overflow, and 0 * inf would make the gradient NaN
+    lmask = torch.exp(torch.where(causal, dec, -torch.inf))
     m = scores.permute(0, 1, 3, 4, 2)[..., None] * lmask    # (b,c,q,k,g,r)
     dx = dtc.float()[..., None] * xc.float()                # (b,c,k,h,p)
     y = torch.einsum("bcqkgr,bckgrp->bcqgrp", m, dx.reshape(b, c, q, g, r, p))

@@ -3,9 +3,9 @@ KV cache.
 
 The port of ``src/repro/models/attention.py``.  Projection parameters are
 stored flattened, as in the reference: wq (d, h·hd), wk/wv (d, g·hd), wo
-(h·hd, d).  Long sequences (``s >= FLASH_MIN_SEQ``) take the flash kernel
-(CUDA on the card, its plain version on the CPU), which runs the forward of
-the reference's ``models/flash.py::flash_attention`` and takes any length,
+(h·hd, d).  Long sequences (``s >= FLASH_MIN_SEQ``) take
+``models/flash.py::flash_attention`` (the flash kernels: CUDA on the card,
+their plain versions on the CPU, with a backward), which takes any length,
 so nothing pads; short ones the direct ``_sdpa``, as in the reference.  Decode stays plain torch: ``_sdpa`` over
 the cache, which the reference also computes outside any kernel.  The
 reference's sharding constraints and cross-attention wait for later slices.
@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import Param, rms_norm, rope
 
 NEG_INF = -2.0 ** 30
@@ -93,7 +93,7 @@ def attention(p, x, positions, *, n_heads: int, n_kv: int, head_dim: int,
     q, k, v = _project_qkv(p, x, positions, theta, n_heads, n_kv, head_dim)
     s = x.shape[1]
     if s >= FLASH_MIN_SEQ:
-        out = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        out = flash_attention(q, k, v, causal=causal, window=window)
     else:
         mask = causal_mask(s, s, window, x.device) if causal else None
         out = _sdpa(q, k, v, mask)

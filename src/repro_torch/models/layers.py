@@ -4,8 +4,7 @@ The port of ``src/repro/models/layers.py``.  Parameters are plain nested
 dicts and tuples of tensors; a :class:`Param` carries (shape, logical axes,
 init scale, dtype) and :func:`init_tree` turns a Param tree into tensors by
 the reference's ``materialize`` rule.  The sharding constraints of the
-reference wait for the port's mesh slice.  ``chunked_loss`` and
-``softmax_xent`` wait for the training slice.
+reference wait for the port's mesh slice.
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -137,3 +137,35 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return x @ table.T.to(x.dtype)
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab: int
+                 ) -> torch.Tensor:
+    """Stable CE in f32; logits (..., V), labels int (...)."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - gold
+
+
+def _chunk_xent_sum(x: torch.Tensor, table: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    return softmax_xent(unembed(x, table), labels, table.shape[0]).sum()
+
+
+def chunked_loss(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+                 chunk: int) -> torch.Tensor:
+    """LM head + mean CE, taken over sequence chunks when ``chunk`` divides
+    the sequence (and is shorter): peak logits memory O(chunk·V) instead of
+    O(S·V).  Each chunk is checkpointed, so its logits are not kept for the
+    backward either: the backward recomputes one chunk's at a time.  Chunk
+    sums are added in order into an f32 total, as the reference's scan."""
+    b, s, _ = x.shape
+    if chunk <= 0 or s % chunk != 0 or s == chunk:
+        return softmax_xent(unembed(x, table), labels, table.shape[0]).mean()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        total = total + checkpoint(_chunk_xent_sum, x[:, i:i + chunk], table,
+                                   labels[:, i:i + chunk], use_reentrant=False)
+    return total / (b * s)

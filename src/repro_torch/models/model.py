@@ -2,10 +2,10 @@
 functions.
 
 The port of ``src/repro/models/model.py``.  ``build_forward(cfg, kind)``
-returns the prefill or decode step; ``init_params`` draws concrete weights
-on a device; ``params_from_numpy`` carries the reference's weights across
-value for value.  The training loss and the encoder-decoder family wait for
-later slices of the port and raise.
+returns the training loss, the prefill or the decode step; ``init_params``
+draws concrete weights on a device; ``params_from_numpy`` carries the
+reference's weights across value for value.  The encoder-decoder family
+waits for a later slice of the port and raises.
 """
 from __future__ import annotations
 
@@ -60,13 +60,10 @@ def params_from_numpy(tree, device=None) -> dict:
 
 
 def build_forward(cfg: ArchConfig, kind: str) -> Callable:
-    """kind: 'prefill' | 'decode'."""
+    """kind: 'loss' | 'prefill' | 'decode'."""
     _check_family(cfg)
-    if kind == "loss":
-        raise NotImplementedError(
-            "the training loss is not ported yet (the training slice: "
-            "lm_loss with the flash-attention backward)")
-    return {"prefill": T.lm_prefill, "decode": T.lm_decode_step}[kind]
+    return {"loss": T.lm_loss, "prefill": T.lm_prefill,
+            "decode": T.lm_decode_step}[kind]
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):

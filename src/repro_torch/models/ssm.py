@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssd.ops import ssd_diag_block
+from repro_torch.kernels.ssd.ops import ssd_diag
 from repro_torch.models.layers import Param
 
 CONV_W = 4
@@ -98,7 +98,7 @@ def ssd_chunked(x, dt, a, bm, cm, chunk: int, return_final: bool = False):
 
     adt = dtc * a[None, None, None, :]                       # (b,c,q,h) <= 0
     cum = torch.cumsum(adt, dim=2)                           # (b,c,q,h)
-    y_diag = ssd_diag_block(xc, dtc, cum, bc, cc, r, out_dtype=torch.float32)
+    y_diag = ssd_diag(xc, dtc, cum, bc, cc, r, out_dtype=torch.float32)
 
     # chunk-final states: S_c = sum_j exp(cum_end - cum_j) dt_j B_j ⊗ X_j
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)        # (b,c,q,h)

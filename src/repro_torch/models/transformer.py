@@ -1,14 +1,16 @@
-"""Decoder-only LM assembly: prefill and decode for the dense and SSM
-families.
+"""Decoder-only LM assembly: the training loss, prefill and decode for the
+dense and SSM families.
 
 The port of ``src/repro/models/transformer.py`` for layer kinds ``g``
 (global attention), ``l`` (sliding window) and ``m`` (Mamba2).  Parameters
 and caches keep the reference's stacked layout: layers are grouped into the
 config's repeating unit, every leaf of ``params["unit"]`` has a leading
 ``n_units`` dim, and remainder layers sit in the ``rest`` tuple.  Where the
-reference scans over the units, the port runs a Python loop that indexes
-them.  MoE layers, cross-attention (kind ``x``) and the training loss
-(``lm_loss``) wait for later slices of the port and raise.
+reference scans over the units, the port runs a Python loop over them.
+``cfg.remat`` checkpoints each unit (``torch.utils.checkpoint``, which
+saves nothing inside it: the reference's ``nothing_saveable`` policy).
+MoE layers and cross-attention (kind ``x``) wait for later slices of the
+port and raise.
 """
 from __future__ import annotations
 
@@ -16,13 +18,14 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
-    Param, embed_lookup, embed_params, mlp_apply, mlp_params, rms_norm,
-    torch_dtype, unembed,
+    Param, chunked_loss, embed_lookup, embed_params, mlp_apply, mlp_params,
+    rms_norm, torch_dtype, unembed,
 )
 
 PORTED_KINDS = ("g", "l", "m")
@@ -142,6 +145,72 @@ def _ffn(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.d_ff:
         x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
     return x
+
+
+def _apply_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One layer of the training forward (no cache)."""
+    h = rms_norm(x, p["ln1"])
+    if kind == "m":
+        mix = S.ssm_apply(p["mixer"], h, head_dim=cfg.ssm_head_dim,
+                          n_state=cfg.ssm_state, n_groups=cfg.ssm_groups,
+                          expand=cfg.ssm_expand, chunk=cfg.ssm_chunk)
+    else:
+        win = cfg.window if kind == "l" and cfg.window else None
+        mix, _ = A.attention(p["attn"], h, positions, n_heads=cfg.n_heads,
+                             n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                             theta=cfg.rope_theta, window=win, causal=True)
+    return _ffn(cfg, p, x + mix)
+
+
+def _unbind(tree: Any) -> list:
+    """A stacked subtree as one subtree per unit.  ``torch.unbind`` gives
+    all the views in one op, so the backward stacks each leaf's gradient
+    once; indexing ``tree[i]`` per layer would add a zero tensor the size of
+    the whole stack for every layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig):
+    """Embedded input (b, s, d) -> (final hidden states (b, s, d), aux).
+
+    aux is the MoE balance loss of the reference, 0 for these families."""
+    check_ported(cfg)
+    u = unit_len(cfg)
+    n_units = cfg.n_layers // u
+    kinds = cfg.layer_kinds()
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    units = [_unbind(sub) for sub in params["unit"]]    # [slot][unit]
+
+    def unit_body(h, *unit_p):
+        for j in range(u):
+            h = _apply_layer(cfg, kinds[j], unit_p[j], h, positions)
+        return h
+
+    for i in range(n_units):
+        unit_p = tuple(units[j][i] for j in range(u))
+        if cfg.remat:
+            x = checkpoint(unit_body, x, *unit_p, use_reentrant=False)
+        else:
+            x = unit_body(x, *unit_p)
+    for j, p in enumerate(params["rest"]):
+        x = _apply_layer(cfg, kinds[n_units * u + j], p, x, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params["final_norm"]), aux
+
+
+def lm_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Causal-LM CE loss (+ 0.01 x the MoE aux loss, 0 here): batch =
+    {tokens (b, s), labels (b, s)}.  Builds no decode cache."""
+    x = embed_inputs(params, batch, cfg)
+    h, aux = backbone(params, x, cfg)
+    loss = chunked_loss(h, params["embed"], batch["labels"], cfg.loss_chunk)
+    return loss + 0.01 * aux
 
 
 def _cache_len(cfg: ArchConfig, kind: str, seq_len: int) -> int:

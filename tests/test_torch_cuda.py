@@ -1,7 +1,7 @@
-"""The port's four CUDA kernels (``mxu_iter``, ``stream_iter``,
-``flash_fwd``, ``ssd_diag``) against their plain versions, on a CUDA card
-(every test here skips without one).  Imports no JAX, so it runs on a
-machine that has only PyTorch:
+"""The port's CUDA kernels (``mxu_iter``, ``stream_iter``, ``flash_fwd``,
+``flash_bwd``, ``ssd_diag``) against their plain versions, on a CUDA card
+(every test here skips without one), and the SSD gradient against plain
+autograd.  Imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -s -m cuda tests/test_torch_cuda.py
 
@@ -10,9 +10,11 @@ The flash and SSD kernels are held element by element to
 largest output.  Faults planted in copies of their sources must fail that
 limit by more than 10 times at the main path's shapes: a dropped key tile
 and an accumulator that is not rescaled when the running maximum grows
-(flash, Llama 3.2 3B prefill), a skipped key block and plain TF32, the low
-part's product dropped (SSD, Mamba2 2.7B prefill), one of a product's
-eight k-steps dropped and the last turn skipped (``mxu_iter``).
+(flash, Llama 3.2 3B prefill), a skipped key tile in dK/dV and the D term
+dropped (the flash backward, Llama 3.2 3B training), a skipped key block
+and plain TF32, the low part's product dropped (SSD, Mamba2 2.7B prefill),
+one of a product's eight k-steps dropped and the last turn skipped
+(``mxu_iter``).
 """
 from __future__ import annotations
 
@@ -52,6 +54,30 @@ FLASH_MUTANTS = {
                   "      for (int j = 0; j < D / 2; ++j) oacc[j] *= (j & 2) ? "
                   "corr1 : corr0;\n", ""),
 }
+#: the backward's cases as (b, s, t, h, g, d, window, causal): head dims 64
+#: and 128, GQA groups of 1 and 3, windows, full attention, s != t, ragged
+#: lengths, the smoke shapes (d 16) and Llama 3.2 3B training at batch 4
+FLASH_BWD_CASES = [
+    (1, 256, 256, 4, 4, 64, None, True), (2, 300, 300, 6, 2, 128, None, True),
+    (1, 512, 512, 3, 1, 64, 128, True), (1, 384, 200, 4, 2, 64, None, False),
+    (1, 200, 384, 4, 4, 128, None, False), (1, 300, 500, 6, 2, 64, None, True),
+    (2, 1024, 1024, 4, 2, 16, 16, True), (1, 1000, 1000, 2, 1, 32, 300, True),
+    (4, 2048, 2048, 24, 8, 128, None, True)]
+#: faults planted in the flash backward, as (text, replacement)
+FLASH_BWD_MUTANTS = {
+    # the dK/dV CTA of the key tile holding t/2 walks no q tile
+    "skip_key_tile": ("    for (int qt = qlo; qt < qhi; ++qt) {\n",
+                      "    for (int qt = qlo; qt < (k0 == (t / 2) / kBK * kBK"
+                      " ? qlo : qhi); ++qt) {\n"),
+    # D = rowsum(dO o O) taken as 0
+    "drop_d": ("  if (lane == 0) dvec[row] = acc;\n",
+               "  if (lane == 0) dvec[row] = 0.f;\n"),
+}
+#: |lse - plain| <= LSE_RTOL * max(1, |plain|): f32 log-sum-exp over at
+#: most 2048 terms in another order, and exp2 of log2-scaled scores against
+#: exp, each about 1e-6 of the row's largest score; a log in the wrong base
+#: or the maximum left in log2 units is off by O(1)
+LSE_RTOL = 1e-4
 #: faults planted in the SSD kernel, as (text, replacement)
 SSD_MUTANTS = {
     # skip the key block just below the diagonal (J = I - 1): the decay
@@ -181,21 +207,117 @@ def test_cuda_ssd_kernel_matches_plain(b, c, q, g, r, p, n, dtype):
         assert _excess("ssd_diag", got, want) <= 1
 
 
-def _with_mutants(tmp_path, monkeypatch, ops, mutants, run) -> dict:
+def _with_mutants(tmp_path, monkeypatch, ops, mutants, run,
+                  attr: str = "SOURCE") -> dict:
     """``run()``'s worst error over its limit for the kernel, then for a
-    copy of its source with each fault of ``mutants`` planted (built and
-    loaded in place of the kernel)."""
+    copy of its source (``ops.<attr>``) with each fault of ``mutants``
+    planted (built and loaded in place of the kernel)."""
     worst = {"kernel": run()}
-    text = ops.SOURCE.read_text()
+    source = getattr(ops, attr)
+    text = source.read_text()
     for name, (old, new) in mutants.items():
         assert text.count(old) == 1, f"{name}: the text to change is gone"
-        src = tmp_path / name / ops.SOURCE.parent.name / "kernel.cu"
+        src = tmp_path / name / source.parent.name / source.name
         src.parent.mkdir(parents=True)
         src.write_text(text.replace(old, new))
-        monkeypatch.setattr(ops, "SOURCE", src)
+        monkeypatch.setattr(ops, attr, src)
         worst[name] = run()
     monkeypatch.undo()
     return worst
+
+
+def _bwd_inputs(seed, b, s, t, h, g, d, dtype, window, causal):
+    """q, k, v, dout ~ N(0, 1) and the plain forward's out and lse."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+                   .to("cuda", dtype) for shape in
+                   ((b, s, h, d), (b, t, g, d), (b, t, g, d), (b, s, h, d)))
+    out, lse = fref.attention_ref(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    return q, k, v, out, lse, do
+
+
+def _bwd_excess(got, want) -> float:
+    return max(_excess("flash_bwd", g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,t,h,g,d,win,causal,dtype", [
+    case + (dtype,) for case in FLASH_BWD_CASES
+    for dtype in ((torch.bfloat16,) if case == FLASH_BWD_CASES[-1]
+                  else (torch.float32, torch.bfloat16))])
+def test_cuda_flash_bwd_matches_plain(b, s, t, h, g, d, win, causal, dtype):
+    """Every case in both dtypes but the main shape, which runs in bf16 (the
+    training path's dtype) only."""
+    ins = _bwd_inputs(s + t + d, b, s, t, h, g, d, dtype, win, causal)
+    kw = dict(causal=causal, window=win)
+    got = fops.flash_attention_bwd(*ins, **kw)
+    want = fref.attention_bwd_ref(*ins, **kw)
+    assert _bwd_excess(got, want) <= 1
+    again = fops.flash_attention_bwd(*ins, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        "two calls differ: the backward must be deterministic"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,g,d,win,causal", FLASH_CASES)
+def test_cuda_flash_lse_matches_plain_and_leaves_out_unchanged(
+        b, s, h, g, d, win, causal, dtype):
+    q, k, v = _flash_inputs(s + d + 1, b, s, h, g, d, dtype)
+    out, lse = fops.flash_attention_fwd(q, k, v, causal=causal, window=win,
+                                        return_lse=True)
+    plain = fops.flash_attention_fwd(q, k, v, causal=causal, window=win)
+    assert torch.equal(out, plain), "asking for the LSE changed the output"
+    _, want = fref.attention_ref(q, k, v, causal=causal, window=win,
+                                 return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, s, h) and lse.dtype == torch.float32
+    err = (lse - want).abs() / want.abs().clamp_min(1.0)
+    assert float(err.max()) <= LSE_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 512])
+def test_cuda_flash_bwd_mutants_fail_the_limit(tmp_path, monkeypatch, window):
+    """The backward and two faulty copies of its source at the Llama 3.2 3B
+    training shape: the kernel within its limit, each copy more than 10
+    times outside it (the CPU emulation: 40 times or more)."""
+    ins = _bwd_inputs(9, 4, 2048, 2048, 24, 8, 128, torch.bfloat16, window,
+                      True)
+    want = fref.attention_bwd_ref(*ins, window=window)
+    worst = _with_mutants(
+        tmp_path, monkeypatch, fops, FLASH_BWD_MUTANTS,
+        lambda: _bwd_excess(fops.flash_attention_bwd(*ins, window=window),
+                            want), attr="BWD_SOURCE")
+    print(f"window {window}: worst error over its limit {worst}")
+    assert worst["kernel"] <= 1
+    assert worst["skip_key_tile"] > 10 and worst["drop_d"] > 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,q,g,r,p,n", SSD_CASES)
+def test_cuda_ssd_gradient_matches_plain_autograd(b, c, q, g, r, p, n):
+    """``ssd_diag`` under autograd: the kernel's forward, and the gradient
+    of every input equal to plain autograd through ``ssd_diag_ref`` (the
+    backward recomputes exactly that)."""
+    ins = _ssd_inputs(q + r + 1, b, c, q, g, r, p, n, torch.bfloat16)
+    gy = torch.randn(ins[0].shape, generator=torch.Generator("cuda")
+                     .manual_seed(q), device="cuda")
+    grads = []
+    for fn in (sops.ssd_diag, sref.ssd_diag_ref):
+        leaves = [x.detach().requires_grad_(True) for x in ins]
+        y = fn(*leaves, r, torch.float32)
+        grads.append(torch.autograd.grad(y, leaves, gy))
+        if fn is sops.ssd_diag:
+            with torch.no_grad():
+                assert torch.equal(y, sops.ssd_diag_block(*ins, r,
+                                                          torch.float32))
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.isfinite(got.float()).all()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -242,7 +364,7 @@ def test_cuda_zoo_empty_inputs_launch_nothing_and_views_are_copied():
     assert fops.flash_attention_fwd(q, k, k).shape == q.shape
     ins = _ssd_inputs(0, 0, 1, 8, 1, 2, 16, 16, torch.float32)
     assert sops.ssd_diag_block(*ins, 2).numel() == 0
-    assert fops.LAUNCHES == {"flash_fwd": 0}
+    assert fops.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
     assert sops.LAUNCHES == {"ssd_diag": 0}
     q, k, v = _flash_inputs(2, 1, 65, 2, 1, 16, torch.float32)
     flat = torch.zeros(q.numel() + 1, device="cuda")

@@ -159,3 +159,23 @@ def test_serve_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(cfg, params)
     assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
+                                                                  tmp_path):
+    from repro_torch.configs import get, smoke
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.loop import Trainer, make_train_step
+    cfg = smoke(get("llama3.2-3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, ckpt_dir=tmp_path / "t")
+    mgr = CheckpointManager(tmp_path / "c")
+    mgr.save(1, {"a": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mgr.restore({"a": torch.zeros(2)})
+    assert mgr.restore({"a": torch.zeros(2)}, device="cpu")[1]["a"].device \
+        .type == "cpu"
+    assert Trainer(cfg, ckpt_dir=tmp_path / "t", device="cpu").device.type \
+        == "cpu"

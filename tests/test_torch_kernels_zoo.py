@@ -1,9 +1,13 @@
 """Flash-attention and SSD kernels of the port: plain versions against the
 JAX reference's oracles on ``tests/test_kernels.py``'s sweeps, the
-wrappers' dispatch rules, and the limits that hold the CUDA kernels to
-their plain versions (``repro_torch/kernels/tolerance.py``): an emulation
-of the flash kernel's tile loop passes them, and the same loop with a
-dropped key tile or a stale maximum fails them.  The CUDA kernels
+gradients (``models/flash.py::flash_attention`` on the CPU against
+``jax.grad`` of the reference's custom VJP, ``ssd_chunked`` against
+``jax.grad`` of the reference's einsum path), the wrappers' dispatch rules,
+and the limits that hold the CUDA kernels to their plain versions
+(``repro_torch/kernels/tolerance.py``): an emulation of the flash kernels'
+arithmetic passes them, and the same with a planted fault (a dropped key
+tile or a stale maximum in the forward; a skipped key tile or a dropped D
+term in the backward) fails them.  The CUDA kernels
 themselves are tested in ``tests/test_torch_cuda.py``, which imports no JAX
 so that it runs on a card.
 
@@ -13,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,11 +26,15 @@ import torch
 from repro.kernels.flash_attention.ops import (
     flash_attention_fwd as jax_flash_fwd,
 )
+from repro.models import flash as jax_flash
+from repro.models import ssm as jax_ssm
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.ssd.ref import ssd_diag_ref as jax_ssd_diag_ref
 from repro_torch.kernels import tolerance
 from repro_torch.kernels.flash_attention import ops as fops, ref as fref
 from repro_torch.kernels.ssd import ops as sops, ref as sref
+from repro_torch.models import flash as tflash
+from repro_torch.models import ssm as tssm
 
 #: tests/test_kernels.py:16-36, with its tolerances
 FLASH_SWEEP = [
@@ -173,7 +182,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
                        fref.attention_ref(q, k, v))
     ins = [torch.from_numpy(a) for a in _ssd_inputs(1, 1, 2, 8, 1, 2, 16, 16)]
     assert torch.equal(sops.ssd_diag_block(*ins, 2), sref.ssd_diag_ref(*ins, 2))
-    assert fops.LAUNCHES == {"flash_fwd": 0}
+    assert fops.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
     assert sops.LAUNCHES == {"ssd_diag": 0}
 
 
@@ -354,3 +363,278 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
                       -(1.0 + 3 * 2.0 ** -11)])
     assert _tf32(x).tolist() == [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, 1.0,
                                  -(1.0 + 2.0 ** -9)]
+
+
+# ---------------------------------------------------------------------------
+# gradients
+# ---------------------------------------------------------------------------
+
+#: tests/test_flash_model.py:12-18 (GQA, window, causal and not, s != t)
+FLASH_GRAD_CASES = [
+    (2, 512, 512, 8, 4, 64, None, True),
+    (2, 512, 512, 8, 2, 32, 128, True),
+    (1, 1500, 1500, 4, 4, 32, None, False),
+    (2, 256, 1601, 8, 4, 32, None, False),
+    (2, 1024, 1024, 6, 3, 32, 192, True),
+]
+
+
+@pytest.mark.parametrize("b,s,t,h,g,d,win,causal", FLASH_GRAD_CASES)
+def test_flash_attention_grads_match_reference(b, s, t, h, g, d, win, causal):
+    """The port's flash attention on the CPU (plain forward with LSE, then
+    ``attention_bwd_ref``) against ``jax.grad`` of the reference's custom
+    VJP on the loss sum(out^2): each gradient within 2e-4 of its largest
+    value, tests/test_flash_model.py's limit."""
+    rng = np.random.RandomState(s + t + d)
+    q = rng.normal(0, 1, (b, s, h, d)).astype(np.float32)
+    k = rng.normal(0, 1, (b, t, g, d)).astype(np.float32)
+    v = rng.normal(0, 1, (b, t, g, d)).astype(np.float32)
+
+    def f_ref(q, k, v):
+        return (jax_flash.flash_attention(q, k, v, causal=causal, window=win,
+                                          q_chunk=128, kv_chunk=256) ** 2).sum()
+
+    want = jax.grad(f_ref, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = tflash.flash_attention(*leaves, causal=causal, window=win)
+    got = torch.autograd.grad((out ** 2).sum(), leaves)
+    for gt, w in zip(got, want):
+        w = np.asarray(w)
+        scale = float(np.abs(w).max())
+        assert scale > 1e-3       # the comparison is relative to it
+        np.testing.assert_allclose(gt.numpy() / scale, w / scale, atol=2e-4)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_bwd_ref_is_autograd_of_attention_ref(causal, window, dtype):
+    """f32: the direct backward equals autograd of the plain forward within
+    1e-5 of each gradient's largest value.  bf16: the forward rounds P for
+    P V and the backward rounds P and dS for the products that take them,
+    so the two agree to bf16 rounding, 2^-6 of the largest value."""
+    rng = np.random.RandomState(3)
+    b, s, t, h, g, d = 2, 96, 96, 6, 2, 32
+    ins = [torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+           .to(dtype).requires_grad_(True)
+           for shape in ((b, s, h, d), (b, t, g, d), (b, t, g, d))]
+    out, lse = fref.attention_ref(*ins, causal=causal, window=window,
+                                  return_lse=True)
+    dout = torch.from_numpy(rng.normal(0, 1, out.shape).astype(np.float32)
+                            ).to(dtype)
+    want = torch.autograd.grad(out, ins, dout)
+    got = fref.attention_bwd_ref(*(x.detach() for x in ins), out.detach(),
+                                 lse.detach(), dout, causal=causal,
+                                 window=window)
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    for gt, w in zip(got, want):
+        assert gt.dtype == w.dtype == dtype
+        top = float(w.float().abs().max())
+        assert top > 0.1
+        assert float((gt.float() - w.float()).abs().max()) <= tol * top
+
+
+def test_flash_lse_is_the_rows_logsumexp():
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(4, 1, 100, 4, 2, 16))
+    _, lse = fops.flash_attention_fwd(q, k, v, window=30, return_lse=True)
+    scores, _ = fref._scores(q, k, True, 30)
+    want = torch.logsumexp(scores, dim=-1).permute(0, 3, 1, 2).reshape(lse.shape)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+
+
+def test_flash_without_grad_takes_the_forward_alone():
+    """Under no_grad (the serve path) or without inputs that need a
+    gradient, flash_attention is the forward wrapper: same output, no LSE."""
+    q, k, v = (torch.from_numpy(a) for a in _flash_inputs(5, 1, 64, 2, 1, 16))
+    want = fops.flash_attention_fwd(q, k, v)
+    assert torch.equal(tflash.flash_attention(q, k, v), want)
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        out = tflash.flash_attention(qg, k, v)
+    assert out.grad_fn is None and torch.equal(out, want)
+    out = tflash.flash_attention(qg, k, v)
+    assert out.grad_fn is not None and torch.equal(out.detach(), want)
+
+
+def test_ssd_chunked_grads_match_reference():
+    """``ssd_chunked`` (its diagonal block through the SSD autograd
+    Function) against ``jax.grad`` of the reference's einsum path, f32, on
+    the loss sum(y * w) for a fixed random w: every input's gradient within
+    1e-5 of its largest value."""
+    rng = np.random.RandomState(0)
+    b, l, h, p, n, g, chunk = 2, 32, 4, 8, 16, 2, 8
+    x = rng.normal(0, 1, (b, l, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.1, (b, l, h)).astype(np.float32)
+    a = -rng.uniform(0.1, 1.0, (h,)).astype(np.float32)
+    bm = rng.normal(0, 1, (b, l, g, n)).astype(np.float32)
+    cm = rng.normal(0, 1, (b, l, g, n)).astype(np.float32)
+    w = rng.normal(0, 1, (b, l, h, p)).astype(np.float32)
+
+    def f_ref(*ins):
+        return (jax_ssm.ssd_chunked(*ins[:3], ins[3], ins[4], chunk,
+                                    kernel="xla") * w).sum()
+
+    want = jax.grad(f_ref, argnums=tuple(range(5)))(
+        *map(jnp.asarray, (x, dt, a, bm, cm)))
+    leaves = [torch.from_numpy(v).requires_grad_(True)
+              for v in (x, dt, a, bm, cm)]
+    y = tssm.ssd_chunked(*leaves, chunk)
+    got = torch.autograd.grad((y * torch.from_numpy(w)).sum(), leaves)
+    for name, gt, wt in zip(("x", "dt", "a", "B", "C"), got, want):
+        wt = np.asarray(wt)
+        top = float(np.abs(wt).max())
+        assert top > 0.1, name
+        err = float(np.abs(gt.numpy() - wt).max())
+        assert err <= 1e-5 * top, (name, err, top)
+
+
+def test_ssd_gradient_is_finite_where_the_decay_overflows():
+    """A chunk of 256 with dt·a near -1 a step puts exp of the masked
+    exponent far past f32's range (cum spans about -180): masking before
+    exp keeps the gradient finite."""
+    rng = np.random.RandomState(1)
+    ins = [torch.from_numpy(v) for v in _ssd_inputs(2, 1, 1, 256, 1, 2, 8, 8)]
+    ins[2] = torch.cumsum(torch.full((1, 1, 256, 2), -0.7), dim=2)
+    leaves = [x.clone().requires_grad_(True) for x in ins]
+    y = sops.ssd_diag(*leaves, 2, torch.float32)
+    gy = torch.from_numpy(rng.normal(0, 1, y.shape).astype(np.float32))
+    for gt in torch.autograd.grad(y, leaves, gy):
+        assert torch.isfinite(gt).all()
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's limits
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def _flash_bwd_emulation(q, k, v, out, lse, dout, *, causal=True,
+                         window=None, mutant=None):
+    """The bf16 backward kernel's arithmetic (flash_attention/backward.cu)
+    in PyTorch: S = Q K^T summed in another order than the plain version's
+    (f64, rounded to f32), P = exp2(S scale log2e - lse log2e) in f32, D in
+    f32, dS = P (dP - D) scale, P and dS rounded to bf16, and dK, dV (dQ)
+    accumulated in f32 over 64-row q tiles (64-key tiles) in the kernel's
+    order.  ``mutant`` plants a fault: "skip_key_tile" (the dK/dV tile of
+    keys holding t/2 walks no q tile, so its dK, dV stay 0) or "drop_d"
+    (D taken as 0)."""
+    b, s, h, d = q.shape
+    t, g = k.shape[1], k.shape[2]
+    r = h // g
+    scale = 1 / math.sqrt(d)
+    qg = q.double().reshape(b, s, g, r, d)
+    sc = torch.einsum("bsgrd,btgd->bgrst", qg, k.double()).float()
+    lse2 = (lse.float() * LOG2E).reshape(b, s, g, r).permute(0, 2, 3, 1)
+    p = torch.exp2(sc * (scale * LOG2E) - lse2[..., None])
+    if causal:
+        p = torch.where(fref._mask(s, t, window, q.device), p, 0.0)
+    do = dout.double().reshape(b, s, g, r, d)
+    dvec = (do * out.double().reshape(b, s, g, r, d)).sum(-1).float()
+    if mutant == "drop_d":
+        dvec = torch.zeros_like(dvec)
+    dp = torch.einsum("bsgrd,btgd->bgrst", do, v.double()).float()
+    ds = p * (dp - dvec.permute(0, 2, 3, 1)[..., None]) * scale
+    p16, ds16 = p.to(torch.bfloat16).double(), ds.to(torch.bfloat16).double()
+    dk = torch.zeros(b, t, g, d)
+    dv = torch.zeros(b, t, g, d)
+    for rr in range(r):
+        for q0 in range(0, s, 64):
+            rows = slice(q0, q0 + 64)
+            dv += torch.einsum("bgst,bsgd->btgd", p16[:, :, rr, rows],
+                               do[:, rows, :, rr]).float()
+            dk += torch.einsum("bgst,bsgd->btgd", ds16[:, :, rr, rows],
+                               qg[:, rows, :, rr]).float()
+    if mutant == "skip_key_tile":
+        k0 = (t // 2) // 64 * 64
+        dk[:, k0:k0 + 64] = 0
+        dv[:, k0:k0 + 64] = 0
+    dq = torch.zeros(b, s, g, r, d)
+    for k0 in range(0, t, 64):
+        dq += torch.einsum("bgrst,btgd->bsgrd", ds16[..., k0:k0 + 64],
+                           k.double()[:, k0:k0 + 64]).float()
+    return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("window", [None, 512])
+def test_flash_bwd_limits_pass_the_kernels_arithmetic_and_fail_its_mutants(
+        window):
+    """At the depth of Llama 3.2 3B training (s 2048, d 128; fewer heads,
+    GQA groups of 3): the kernel's arithmetic within the flash_bwd limit,
+    a skipped key tile and a dropped D term far outside it (the card tests
+    plant the same faults in the CUDA source)."""
+    rng = np.random.RandomState(21)
+    q, k, v, dout = (torch.from_numpy(rng.normal(0, 1, shape)
+                                      .astype(np.float32)).to(torch.bfloat16)
+                     for shape in ((1, 2048, 6, 128), (1, 2048, 2, 128),
+                                   (1, 2048, 2, 128), (1, 2048, 6, 128)))
+    out, lse = fref.attention_ref(q, k, v, window=window, return_lse=True)
+    want = fref.attention_bwd_ref(q, k, v, out, lse, dout, window=window)
+    worst = {}
+    for mutant in (None, "skip_key_tile", "drop_d"):
+        got = _flash_bwd_emulation(q, k, v, out, lse, dout, window=window,
+                                   mutant=mutant)
+        worst[mutant] = max(tolerance.kernel_excess("flash_bwd", g, w)
+                            for g, w in zip(got, want))
+    print(f"window {window}: worst error over its limit {worst}")
+    assert worst[None] <= 0.5, "the kernel's arithmetic passes with room"
+    assert worst["skip_key_tile"] > 20 and worst["drop_d"] > 20
+
+
+@pytest.mark.parametrize("b,s,h,g,d,win", [(1, 1024, 4, 2, 64, None),
+                                           (2, 512, 8, 2, 128, 128)])
+def test_flash_bf16_grads_differ_from_the_reference_by_rounding(b, s, h, g, d,
+                                                                win):
+    """Port difference 4 (ROADMAP section 3): in bf16 the port rounds P and
+    dS to bf16 before the products that take them, where the reference
+    keeps them in f32 (and rounds S = Q K^T to bf16, the einsum's output
+    type).  On bf16 inputs the two backwards' gradients lie within 2^-6 of
+    the largest |reference| value (measured: at most 0.65%); a wrong mask
+    or a dropped term is off by O(1)."""
+    rng = np.random.RandomState(0)
+    q, k, v = (rng.normal(0, 1, shape).astype(np.float32)
+               for shape in ((b, s, h, d), (b, s, g, d), (b, s, g, d)))
+    w = rng.normal(0, 1, (b, s, h, d)).astype(np.float32)
+
+    def f_ref(q, k, v):
+        out = jax_flash.flash_attention(q, k, v, causal=True, window=win)
+        return (out.astype(jnp.float32) * w).sum()
+
+    want = jax.grad(f_ref, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+              for x in (q, k, v)]
+    out = tflash.flash_attention(*leaves, causal=True, window=win)
+    got = torch.autograd.grad((out.float() * torch.from_numpy(w)).sum(),
+                              leaves)
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        wt = np.asarray(wt, np.float32)
+        top = float(np.abs(wt).max())
+        err = float(np.abs(gt.float().numpy() - wt).max())
+        print(f"{name}: max|port - reference| {err:.4g} of {top:.4g}")
+        assert top > 0.5 and err <= 2.0 ** -6 * top
+
+
+def test_ssd_chunked_grads_are_finite_where_the_references_are_not():
+    """At Mamba2 2.7B's chunk of 256 with its init (a = -1, dt about 0.7)
+    the decay exponent of a masked pair reaches about 180, past f32's exp
+    range: the reference's einsum path takes exp before the mask, so its
+    gradients of dt and a are NaN (0 * inf); the port masks first and its
+    gradients are finite (ROADMAP section 3)."""
+    rng = np.random.RandomState(0)
+    b, l, h, p, n, g = 1, 256, 2, 8, 8, 1
+    x = rng.normal(0, 1, (b, l, h, p)).astype(np.float32)
+    dt = np.full((b, l, h), 0.7, np.float32)
+    a = -np.ones((h,), np.float32)
+    bm = rng.normal(0, 1, (b, l, g, n)).astype(np.float32)
+    cm = rng.normal(0, 1, (b, l, g, n)).astype(np.float32)
+    want = jax.grad(lambda *i: jax_ssm.ssd_chunked(*i, 256, kernel="xla")
+                    .sum(), argnums=(0, 1, 2, 3, 4))(
+        *map(jnp.asarray, (x, dt, a, bm, cm)))
+    leaves = [torch.from_numpy(v).requires_grad_(True)
+              for v in (x, dt, a, bm, cm)]
+    got = torch.autograd.grad(tssm.ssd_chunked(*leaves, 256).sum(), leaves)
+    assert [bool(np.isfinite(np.asarray(w)).all()) for w in want] == \
+        [True, False, False, True, True]
+    assert all(torch.isfinite(t).all() for t in got)

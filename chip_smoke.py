@@ -2,9 +2,14 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-cost OLD . . OLD    # only the launch path
+    python3 chip_smoke.py --flash-bwd-vs OLD . . OLD   # only flash_bwd
 
-Builds the hand-written CUDA kernels from the sources in this checkout,
-holds each kernel against its plain PyTorch version, and drives the port's
+Builds the hand-written CUDA kernels from the sources in this checkout
+(printing each kernel's ptxas register and spill line, and failing unless
+the tensor-core kernels use the engines their design names: SASS
+``HGMMA`` and ``UTMALDG`` and no ``HMMA`` in both bf16 ``flash_bwd``
+kernels, ``HGMMA`` and no ``HMMA`` in ``mxu_iter``), holds each kernel
+against its plain PyTorch version, and drives the port's
 paths on the card, checking that each went through its kernels:
 
 - slice 1: synthesize → run_all → fidelity on the 64-rank synthetic trace
@@ -35,6 +40,9 @@ its output is ``{"ok": true, "device": {...}}``.
 process for each checkout named and in that order, the proxy-block
 wrappers' host cost per call and ``run_all`` (:func:`launch_cost`), and
 writes the runs to ``build/launch_cost.json`` of this checkout.
+``--flash-bwd-vs TREE ...`` likewise runs only ``flash_bwd`` built from
+each checkout's ``backward.cu``, at the main shape, in that order
+(:func:`phase_flash_bwd_versus`).
 """
 from __future__ import annotations
 
@@ -147,23 +155,54 @@ def phase_build() -> None:
     secs = time.perf_counter() - t0
     for src, lib in libs.items():
         print(f"build: {src.relative_to(ROOT)} -> {lib.relative_to(ROOT)}")
-        for line in build.BUILD_LOG.get(str(src), "").splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {line.strip()}")
+        for line in ptxas_lines(build.BUILD_LOG.get(str(src), "")):
+            print(f"  {line}")
     print(f"build: {secs:.2f} s")
-    counts = sass_counts(libs).get("mxu_iter_kernel")
-    if counts is not None and (counts["HGMMA"] == 0 or counts["HMMA"] > 0):
-        fail(f"mxu_iter_kernel is not on wgmma alone: {counts}")
+    counts = sass_counts(libs)
+    for func in SASS_WGMMA_TMA:
+        c = counts.get(func)
+        if c is not None and (c["HGMMA"] == 0 or c["HMMA"] > 0
+                              or c["UTMALDG"] == 0):
+            fail(f"{func} is not on wgmma and TMA alone: {c}")
+    c = counts.get("mxu_iter_kernel")
+    if c is not None and (c["HGMMA"] == 0 or c["HMMA"] > 0):
+        fail(f"mxu_iter_kernel is not on wgmma alone: {c}")
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """Each kernel's register and spill report from ``nvcc -Xptxas -v``:
+    ``name<D>: Used ... registers, ...; ... spill stores, ... spill loads``
+    (kernel names demangled as far as their template argument), and any
+    warning of lost performance (wgmma serialised)."""
+    import re
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"([a-z][a-z0-9_]*_kernel)(?:ILi(\d+)E)?",
+                          line.split()[-1])
+            name = (f"{m.group(1)}<{m.group(2)}>" if m and m.group(2)
+                    else m.group(1) if m else line.split()[-1])
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {spill}")
+        elif "Performance Loss" in line:     # e.g. wgmma serialised
+            out.append(line.strip())
+    return out
 
 
 #: SASS instructions that show which engines a kernel uses: HGMMA (wgmma),
 #: HMMA (mma.sync and WMMA), LDGSTS (cp.async), UTMALDG (TMA loads)
 SASS_OPS = ("HGMMA", "HMMA", "LDGSTS", "UTMALDG")
-#: the tensor-core kernels, by source (directory/file) and function name
-SASS_KERNELS = {"flash_attention/kernel.cu": "flash_fwd_bf16_kernel",
-                "flash_attention/backward.cu": "flash_bwd_dkdv_bf16_kernel",
-                "ssd/kernel.cu": "ssd_diag_kernel",
-                "proxy_blocks/kernel.cu": "mxu_iter_kernel"}
+#: the tensor-core kernels, by source (directory/file) and function names
+SASS_KERNELS = {"flash_attention/kernel.cu": ("flash_fwd_bf16_kernel",),
+                "flash_attention/backward.cu": ("flash_bwd_dkdv_bf16_kernel",
+                                                "flash_bwd_dq_bf16_kernel"),
+                "ssd/kernel.cu": ("ssd_diag_kernel",),
+                "proxy_blocks/kernel.cu": ("mxu_iter_kernel",)}
+#: kernels that must run on wgmma fed by TMA, with no mma.sync
+SASS_WGMMA_TMA = ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
 
 
 def sass_counts(libs: dict) -> dict:
@@ -175,26 +214,27 @@ def sass_counts(libs: dict) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
     for src, lib in libs.items():
-        func = SASS_KERNELS.get(f"{src.parent.name}/{src.name}")
-        if func is None:
+        funcs = SASS_KERNELS.get(f"{src.parent.name}/{src.name}", ())
+        if not funcs:
             continue
         if not Path(tool).exists():
-            print(f"sass {func}: cuobjdump not found, instructions not "
-                  "counted")
+            print(f"sass {', '.join(funcs)}: cuobjdump not found, "
+                  "instructions not counted")
             continue
         dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, timeout=300).stdout
-        counts = dict.fromkeys(SASS_OPS, 0)
-        inside = False
-        for line in dump.splitlines():
-            if "Function :" in line:
-                inside = func in line
-            elif inside:
-                for op in SASS_OPS:
-                    counts[op] += len(re.findall(rf"\b{op}\b", line))
-        print(f"sass {func} ({src.relative_to(ROOT)}): " + ", ".join(
-            f"{op} {n}" for op, n in counts.items()))
-        out[func] = counts
+        for func in funcs:
+            counts = dict.fromkeys(SASS_OPS, 0)
+            inside = False
+            for line in dump.splitlines():
+                if "Function :" in line:
+                    inside = func in line
+                elif inside:
+                    for op in SASS_OPS:
+                        counts[op] += len(re.findall(rf"\b{op}\b", line))
+            print(f"sass {func} ({src.relative_to(ROOT)}): " + ", ".join(
+                f"{op} {n}" for op, n in counts.items()))
+            out[func] = counts
     return out
 
 
@@ -1427,19 +1467,54 @@ def train_crash_resume(dev) -> None:
     shutil.rmtree(base, ignore_errors=True)
 
 
-def flash_bwd_timing(dev) -> dict:
-    """flash_bwd at Llama 3.2 3B's training shape: kernel, plain version,
-    bound, and the backward alone of PyTorch's SDPA on the same tensors (a
-    yardstick), the kernel and the yardstick in turns."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+def flash_bwd_main_inputs(dev) -> tuple:
+    """q, k, v, out, lse, dout at Llama 3.2 3B's training shape (bf16,
+    causal), out and lse from the kernel's forward."""
+    from repro_torch.kernels.flash_attention import ops as fops
 
     gen = torch.Generator(device=dev).manual_seed(2)
     fl = FLASH_MAIN
-    b, s, h, g, d = (fl[k] for k in ("b", "s", "h", "g", "d"))
-    q, k, v = flash_inputs(gen, b, s, h, g, d, torch.bfloat16, dev)
+    q, k, v = flash_inputs(gen, *(fl[x] for x in ("b", "s", "h", "g", "d")),
+                           torch.bfloat16, dev)
     dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     out, lse = fops.flash_attention_fwd(q, k, v, return_lse=True)
+    return q, k, v, out, lse, dout
+
+
+def flash_bwd_kernel_us(fn, calls: int = 5) -> dict:
+    """Device microseconds a launch of each flash_bwd kernel (D, dQ,
+    dK/dV) over ``calls`` calls of ``fn``, from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total: dict = {}
+    for t, count, key in kernel_times(prof):
+        for name in ("flash_bwd_prep", "flash_bwd_dot", "flash_bwd_dq",
+                     "flash_bwd_dkdv"):
+            if name in key:
+                t0, n0 = total.get(name, (0.0, 0))
+                total[name] = (t0 + t, n0 + count)
+    return {name: t / n for name, (t, n) in total.items()}
+
+
+def flash_bwd_timing(dev) -> tuple[dict, dict]:
+    """flash_bwd at Llama 3.2 3B's training shape: kernel, plain version,
+    bound, and the backward alone of PyTorch's SDPA on the same tensors (a
+    yardstick), the kernel and the yardstick in turns; and the profiler's
+    device microseconds of each of its kernels a call
+    (:func:`phase_flash_bwd_versus` of this checkout)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+
+    fl = FLASH_MAIN
+    b, s, h, g, d = (fl[k] for k in ("b", "s", "h", "g", "d"))
+    q, k, v, out, lse, dout = flash_bwd_main_inputs(dev)
     pairs = s * (s + 1) / 2
     flops = 10 * b * h * d * pairs          # five products, 2.5 x forward
     nbytes = 2 * (4 * b * s * h * d + 4 * b * s * g * d) + 4 * b * s * h
@@ -1464,18 +1539,71 @@ def flash_bwd_timing(dev) -> dict:
           f"% of the bound), plain {row['plain_ms']:.4f} ms, bound "
           f"{bnd:.4f} ms ({bby}; {flops:.3g} FLOP, {nbytes / 1e6:.1f} MB), "
           f"SDPA backward {row['library_ms']:.4f} ms")
-    return row
+    del q, k, v, out, lse, dout, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    # in a fresh process: after a long run's earlier profiles, the
+    # profiler drops some of these kernels' events
+    proc = subprocess.run([sys.executable, __file__, "--flash-bwd-vs",
+                           str(ROOT)], capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        fail(f"flash_bwd profile: {proc.stderr.strip()[-2000:]}")
+    us = json.loads(proc.stdout.strip().splitlines()[-1])[
+        "flash_bwd_versus"][0]["device_us"]
+    print("profile flash_bwd main shape, device us a launch: " + ", ".join(
+        f"{name} {t:.1f}" for name, t in us.items()))
+    return row, us
+
+
+def phase_flash_bwd_versus(trees: list[Path]) -> None:
+    """flash_bwd of each checkout's ``backward.cu`` at the main shape,
+    through this checkout's wrapper (the C interface is the same), in the
+    order given: name one tree twice and another between (``OLD NEW NEW
+    OLD``) to compare two kernels on one card.  Each is held to the plain
+    version first; SDPA's backward is timed beside each turn."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+
+    dev = torch.device("cuda", 0)
+    rel = Path("src/repro_torch/kernels/flash_attention/backward.cu")
+    srcs = [(tree / rel).resolve() for tree in trees]
+    build.build_all(sorted(set(srcs)))
+    q, k, v, out, lse, dout = flash_bwd_main_inputs(dev)
+    want = fref.attention_bwd_ref(q, k, v, out, lse, dout)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+    lib = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,  # noqa: E731
+                                      retain_graph=True)
+    kern = lambda: fops.flash_attention_bwd(q, k, v, out, lse, dout)  # noqa
+    runs = []
+    for tree, src in zip(trees, srcs):
+        fops.BWD_SOURCE = src
+        err = max(check_close("flash_bwd", x, y, f"{name} of {tree}")
+                  for name, x, y in zip(("dq", "dk", "dv"), kern(), want))
+        ms, sdpa = cuda_ms(kern, 20), cuda_ms(lib, 20)
+        us = flash_bwd_kernel_us(kern)
+        runs.append({"tree": str(tree), "ms": ms, "sdpa_backward_ms": sdpa,
+                     "max_abs_err": err, "device_us": us})
+        print(f"flash_bwd of {tree}: {ms:.4f} ms (SDPA backward {sdpa:.4f} "
+              "ms); device us a launch " + ", ".join(
+                  f"{n} {t:.1f}" for n, t in us.items()))
+    print(json.dumps({"flash_bwd_versus": runs}))
 
 
 def phase_train(dev, errs: dict) -> tuple[dict, dict]:
     """Slice 5: the training path.  Returns (per-model rows, flash_bwd's
     timing row)."""
     errs["flash_bwd"], ssd_ms = check_train_kernels(dev)
-    timing = flash_bwd_timing(dev)
+    timing, kernel_us = flash_bwd_timing(dev)
     torch.cuda.empty_cache()
     rows = {arch: train_full(dev, arch)
             for arch in ("llama3.2-3b", "mamba2-2.7b")}
     rows["mamba2-2.7b"]["ssd_backward_ms_a_layer"] = ssd_ms
+    rows["llama3.2-3b"]["flash_bwd_device_us"] = kernel_us
     train_smoke_configs(dev)
     train_crash_resume(dev)
     return rows, timing
@@ -1570,6 +1698,9 @@ def main() -> None:
                    help="only time the proxy-block wrappers' host cost per "
                    "call and run_all of each checkout, in turns")
     p.add_argument("--launch-cost-child", type=Path, help=argparse.SUPPRESS)
+    p.add_argument("--flash-bwd-vs", nargs="+", type=Path, metavar="TREE",
+                   help="only time flash_bwd built from each checkout's "
+                   "backward.cu at the main shape, in turns")
     args = p.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1579,6 +1710,10 @@ def main() -> None:
     if args.launch_cost:
         phase_device()
         phase_launch_cost(args.launch_cost)
+        return
+    if args.flash_bwd_vs:
+        phase_device()
+        phase_flash_bwd_versus(args.flash_bwd_vs)
         return
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     try:

@@ -4,7 +4,7 @@ Each source (a ``kernel.cu``, and the flash backward's ``backward.cu``)
 has a plain C interface and is compiled by ``nvcc`` into
 its own shared library, loaded with :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds).  Sources include the port's shared headers
-(``wgmma.cuh``) from ``INCLUDE_DIRS``.  Libraries go under
+(``wgmma.cuh``, ``tma.cuh``) from ``INCLUDE_DIRS``.  Libraries go under
 ``build/repro_torch/`` at the root of the checkout, named by a hash of the
 source, of every header in ``INCLUDE_DIRS`` and of the flags, so a changed
 source or header rebuilds and an unchanged one is reused.

@@ -51,7 +51,7 @@
 //     d / 64 boxes ("atoms") of 64 columns, each its own 128-row region of
 //     128 B rows written with SWIZZLE_128B; at d 32 and 16 the row is 64 B
 //     and 32 B and the swizzle span shrinks to match (SWIZZLE_64B, _32B).
-//     The descriptor's layout type is the same swizzle (Swz below), its
+//     The descriptor's layout type is the same swizzle (Swz, tma.cuh), its
 //     stride byte offset is 8 rows of the atom, and every region starts on
 //     a 1024 B boundary so the hardware's address-based XOR agrees between
 //     the two.  A K-major k-step of 16 columns inside an atom advances the
@@ -88,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 typedef __nv_bfloat16 bf16;
@@ -103,7 +104,6 @@ constexpr int kStages = 2;            // K/V ring depth
 constexpr int kThreads = 384;         // producer + two consumer warpgroups
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-constexpr unsigned kWatchdog = 1u << 26;
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int t, int causal,
                                         int window) {
@@ -126,71 +126,16 @@ __device__ __forceinline__ void tile_range(int q0, int rows, int tile, int t,
   }
 }
 
-// Swizzle of a tile with d bf16 columns: the span (one shared-memory row
-// of an atom) is min(2d, 128) bytes.
-template <int D>
-struct Swz {
-  static constexpr int kBytes = 2 * D < 128 ? 2 * D : 128;
-  static constexpr int kCols = kBytes / 2;           // columns per atom
-  static constexpr int kAtoms = D / kCols;
-  static constexpr int kAtomBytes = kTile * kBytes;  // one 128-row atom
-  static constexpr int kTileBytes = kAtoms * kAtomBytes;
-  // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
-  static constexpr uint64_t kDescLayout = kBytes == 128 ? 1 : kBytes == 64 ? 2 : 3;
-};
-
 // Shared memory of the bf16 kernel, in bytes from a 1024-aligned base.
 template <int D>
 struct Smem {
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + Swz<D>::kTileBytes;
-  static constexpr int kV = kK + kStages * Swz<D>::kTileBytes;
-  static constexpr int kBar = kV + kStages * Swz<D>::kTileBytes;
+  static constexpr int kK = kQ + Swz<D, kTile>::kTileBytes;
+  static constexpr int kV = kK + kStages * Swz<D, kTile>::kTileBytes;
+  static constexpr int kBar = kV + kStages * Swz<D, kTile>::kTileBytes;
   // q_full, then full[kStages], then empty[kStages]
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (unsigned spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (spins == kWatchdog) __trap();
-  }
-}
-
-// One box of a 4-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -200,11 +145,10 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       bf16* __restrict__ out, float* __restrict__ lse, int s,
                       int t, int h, int g, int causal, int window,
                       float scale) {
-  using W = Swz<D>;
+  using W = Swz<D, kTile>;
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* smem = align_1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
@@ -462,54 +406,6 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map (d, heads, positions, batch) of a contiguous bf16 tensor
-// (batch, positions, heads, d), read in boxes of one atom's columns by
-// kTile positions of one head.
-template <int D>
-bool make_map(CUtensorMap* map, const void* ptr, int heads, int len, int b) {
-  using W = Swz<D>;
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(len),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads,
-                                 2ull * D * heads * len};
-  const cuuint32_t box[4] = {W::kCols, 1, kTile, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = W::kBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : W::kBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* lse, int b, int s, int t, int h, int g, int causal,
@@ -531,8 +427,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
     set = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_map<D>(&tq, q, h, s, b) || !make_map<D>(&tk, k, g, t, b) ||
-      !make_map<D>(&tv, v, g, t, b))
+  if (!make_map<D, kTile>(&tq, q, h, s, b) ||
+      !make_map<D, kTile>(&tk, k, g, t, b) ||
+      !make_map<D, kTile>(&tv, v, g, t, b))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(h, b, (s + kTile - 1) / kTile);
   flash_fwd_bf16_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(

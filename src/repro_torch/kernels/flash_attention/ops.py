@@ -24,6 +24,8 @@ from repro_torch.kernels.proxy_blocks.ops import _aligned, _stream_handle
 SOURCE = Path(__file__).resolve().parent / "kernel.cu"
 BWD_SOURCE = Path(__file__).resolve().parent / "backward.cu"
 HEAD_DIMS = (16, 32, 64, 128)
+#: rows of the backward's head-major scratch are padded to this (kPad)
+BWD_PAD = 128
 DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches since the last :func:`reset_counts`
@@ -117,7 +119,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (s and t and b and h):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dvec = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
+    # the kernels' scratch: D = rowsum(dO o O) and the LSE in log2 units,
+    # each (b, h, s rounded up to BWD_PAD) (the f32 kernels use (b, s, h))
+    s_pad = -(-s // BWD_PAD) * BWD_PAD
+    dvec = torch.empty(2 * b * h * s_pad, dtype=torch.float32,
+                       device=q.device)
     lib = build.load(BWD_SOURCE, BWD_PROTOTYPES)
     win = int(window) if (causal and window is not None) else 0
     code = lib.flash_bwd_launch(

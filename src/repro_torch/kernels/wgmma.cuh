@@ -1,5 +1,5 @@
 // Hopper (sm_90a) warpgroup matrix multiply: the inline-PTX pieces that
-// the port's wgmma kernels share (flash_attention/kernel.cu and
+// the port's wgmma kernels share (flash_attention/kernel.cu, backward.cu and
 // proxy_blocks/kernel.cu).  build.py compiles each source with this
 // directory on the include path and hashes this header into the name of
 // every library that includes it.
@@ -40,6 +40,16 @@ static __device__ __forceinline__ uint64_t make_desc(uint32_t addr,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
 }
 
+// `desc` with its start address advanced by `bytes` (a multiple of 16 that
+// stays inside shared memory): the address is the low field, in 16-byte
+// units, so one 32-bit add of a constant steps a descriptor through the
+// k-steps of a tile instead of building each one anew.
+static __device__ __forceinline__ uint64_t desc_add(uint64_t desc,
+                                                    uint32_t bytes) {
+  const uint32_t lo = static_cast<uint32_t>(desc) + (bytes >> 4);
+  return (desc & 0xFFFFFFFF00000000ull) | lo;
+}
+
 static __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -48,6 +58,11 @@ static __device__ __forceinline__ void wgmma_commit() {
 }
 static __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // Generic-proxy writes to shared memory (plain stores) made visible to the
@@ -83,6 +98,31 @@ static __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
       : WGMMA_R8(0), WGMMA_R8(8), WGMMA_R8(16), WGMMA_R8(24), WGMMA_R8(32),
         WGMMA_R8(40), WGMMA_R8(48), WGMMA_R8(56)
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[0:32] (+)= A (64x16, shared, K-major) * B (16x64, shared, K-major);
+// scale_d 0 overwrites d.
+static __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                                    uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_R8(0), WGMMA_R8(8), WGMMA_R8(16), WGMMA_R8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma_ss_n<N> for N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N");
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
 }
 
 // d[0:N/2] (+)= A (64x16, registers) * B (16xN, shared, MN-major: the

@@ -132,7 +132,11 @@ def embed_params(vocab: int, d: int, dtype: str) -> Param:
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+    """``table[tokens]``.  Through ``F.embedding``, whose backward sums each
+    row's gradients in token order: the backward of plain indexing is an
+    accumulating ``index_put_`` that, on the CPU above its grain size, adds
+    in parallel in no fixed order, so two equal steps could differ."""
+    return F.embedding(tokens.long(), table)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

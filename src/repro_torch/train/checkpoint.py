@@ -12,11 +12,14 @@ manifest fields::
 
 Leaf keys are the reference's (``params/unit/[0]/attn/wq``: dict keys,
 ``[i]`` for a tuple index, joined by ``/``), from the port's own walk of
-the tree.  numpy has no bfloat16, so a bf16 leaf is
-stored as its 16-bit pattern (uint16) and the manifest records
-``"bfloat16"``.  Restore places every leaf on one device with the
-template leaf's dtype; elastic restore onto another mesh waits for the
-port's mesh slice.
+the tree.  A bf16 leaf is written in the reference's file format: its
+16-bit patterns under the header that ``np.save`` gives an ml_dtypes
+bfloat16 array (descr ``'<V2'``; numpy itself has no bfloat16, and the
+port does not import ml_dtypes), and the manifest records
+``"bfloat16"``.  Restore reads that form, and the ``uint16`` files that
+earlier versions of the port wrote, to the same bits.  Restore places
+every leaf on one device with the template leaf's dtype; elastic restore
+onto another mesh waits for the port's mesh slice.
 """
 from __future__ import annotations
 
@@ -47,17 +50,34 @@ def _map_with_paths(fn, tree, prefix: str = ""):
 
 
 def _to_host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
-    """A leaf as (numpy array, dtype name); bf16 as its bits."""
+    """A leaf as (numpy array, dtype name); bf16 as its bits, viewed as
+    2-byte voids."""
     t = leaf.detach().cpu()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        bits = t.contiguous().view(torch.int16).numpy()
+        return bits.view(np.dtype("V2")), "bfloat16"
     arr = t.numpy()
     return arr, str(arr.dtype)
 
 
+def _save_leaf(path: Path, arr: np.ndarray, dtype: str) -> None:
+    """``np.save``, but a bf16 leaf gets the header that ``np.save`` writes
+    for an ml_dtypes bfloat16 array: descr ``'<V2'`` (numpy would write
+    ``'|V2'`` for the void view)."""
+    if dtype != "bfloat16":
+        np.save(path, arr)
+        return
+    header = {"descr": "<V2", "fortran_order": False, "shape": arr.shape}
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, header)
+        f.write(arr.tobytes())
+
+
 def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """A loaded leaf as a tensor; a bf16 leaf from the reference's 2-byte
+    void form or the ``uint16`` form, to the same bits."""
     if dtype == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(np.array(arr).view(np.int16)
                                 ).view(torch.bfloat16)
     return torch.from_numpy(np.array(arr))
 
@@ -115,7 +135,7 @@ class CheckpointManager:
         manifest = {"step": step, "extra": extra, "leaves": {}}
         for key, arr, dtype in host:
             fname = key.replace("/", "__").replace("[", "_").replace("]", "_")
-            np.save(tmp / f"{fname}.npy", arr)
+            _save_leaf(tmp / f"{fname}.npy", arr, dtype)
             manifest["leaves"][key] = {
                 "file": f"{fname}.npy",
                 "shape": list(arr.shape),

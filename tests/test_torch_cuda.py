@@ -65,13 +65,15 @@ FLASH_BWD_CASES = [
     (4, 2048, 2048, 24, 8, 128, None, True)]
 #: faults planted in the flash backward, as (text, replacement)
 FLASH_BWD_MUTANTS = {
-    # the dK/dV CTA of the key tile holding t/2 walks no q tile
-    "skip_key_tile": ("    for (int qt = qlo; qt < qhi; ++qt) {\n",
-                      "    for (int qt = qlo; qt < (k0 == (t / 2) / kBK * kBK"
-                      " ? qlo : qhi); ++qt) {\n"),
+    # the dK/dV CTA of the 128-key tile holding t/2 walks no q tile
+    "skip_key_tile": ("  q_range(k0, kKeys, kRows, s, causal, window, &qlo, "
+                      "&qhi);\n",
+                      "  q_range(k0, kKeys, kRows, s, causal, window, &qlo, "
+                      "&qhi);\n"
+                      "  if (k0 == (t / 2) / kKeys * kKeys) qhi = qlo;\n"),
     # D = rowsum(dO o O) taken as 0
-    "drop_d": ("  if (lane == 0) dvec[row] = acc;\n",
-               "  if (lane == 0) dvec[row] = 0.f;\n"),
+    "drop_d": ("    dvec[row] = p < s ? acc : 0.f;\n",
+               "    dvec[row] = 0.f;\n"),
 }
 #: |lse - plain| <= LSE_RTOL * max(1, |plain|): f32 log-sum-exp over at
 #: most 2048 terms in another order, and exp2 of log2-scaled scores against

@@ -514,11 +514,11 @@ def _flash_bwd_emulation(q, k, v, out, lse, dout, *, causal=True,
     """The bf16 backward kernel's arithmetic (flash_attention/backward.cu)
     in PyTorch: S = Q K^T summed in another order than the plain version's
     (f64, rounded to f32), P = exp2(S scale log2e - lse log2e) in f32, D in
-    f32, dS = P (dP - D) scale, P and dS rounded to bf16, and dK, dV (dQ)
-    accumulated in f32 over 64-row q tiles (64-key tiles) in the kernel's
-    order.  ``mutant`` plants a fault: "skip_key_tile" (the dK/dV tile of
-    keys holding t/2 walks no q tile, so its dK, dV stay 0) or "drop_d"
-    (D taken as 0)."""
+    f32, dS = P (dP - D) scale, P and dS rounded to bf16, and dK, dV
+    accumulated in f32 over each query head's 64-row q tiles, dQ over
+    128-key tiles, in the kernels' order.  ``mutant`` plants a fault:
+    "skip_key_tile" (the dK/dV CTA of the 128 keys holding t/2 walks no q
+    tile, so its dK, dV stay 0) or "drop_d" (D taken as 0)."""
     b, s, h, d = q.shape
     t, g = k.shape[1], k.shape[2]
     r = h // g
@@ -546,13 +546,13 @@ def _flash_bwd_emulation(q, k, v, out, lse, dout, *, causal=True,
             dk += torch.einsum("bgst,bsgd->btgd", ds16[:, :, rr, rows],
                                qg[:, rows, :, rr]).float()
     if mutant == "skip_key_tile":
-        k0 = (t // 2) // 64 * 64
-        dk[:, k0:k0 + 64] = 0
-        dv[:, k0:k0 + 64] = 0
+        k0 = (t // 2) // 128 * 128
+        dk[:, k0:k0 + 128] = 0
+        dv[:, k0:k0 + 128] = 0
     dq = torch.zeros(b, s, g, r, d)
-    for k0 in range(0, t, 64):
-        dq += torch.einsum("bgrst,btgd->bsgrd", ds16[..., k0:k0 + 64],
-                           k.double()[:, k0:k0 + 64]).float()
+    for k0 in range(0, t, 128):
+        dq += torch.einsum("bgrst,btgd->bsgrd", ds16[..., k0:k0 + 128],
+                           k.double()[:, k0:k0 + 128]).float()
     return (dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 

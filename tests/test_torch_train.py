@@ -30,7 +30,9 @@ from repro.train import optimizer as JO
 from repro_torch.configs import get, smoke
 from repro_torch.models import layers as L
 from repro_torch.models.layers import tree_leaves, tree_map
-from repro_torch.models.model import build_forward, params_from_numpy
+from repro_torch.models.model import (
+    build_forward, init_params, params_from_numpy,
+)
 from repro_torch.train import optimizer as O
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import Prefetcher, TokenDataset
@@ -333,6 +335,49 @@ def test_checkpoint_roundtrip_with_bf16_leaves(tmp_path):
                                        "t/[1]"}
 
 
+def _bf16_values() -> torch.Tensor:
+    return torch.tensor([[1.0, -2.5, 0.1], [3.0e38, -0.0, 1e-40]]
+                        ).to(torch.bfloat16)
+
+
+def test_checkpoint_bf16_leaf_is_the_references_file(tmp_path):
+    """A bf16 leaf is written byte for byte as the reference writes it:
+    ``np.save`` of the same values as an ml_dtypes bfloat16 array."""
+    import ml_dtypes
+    w = _bf16_values()
+    CheckpointManager(tmp_path).save(1, {"w": w, "a": torch.ones(3)})
+    want = tmp_path / "want.npy"
+    np.save(want, w.float().numpy().astype(ml_dtypes.bfloat16))
+    got = (tmp_path / "step_00000001" / "w.npy").read_bytes()
+    assert got == want.read_bytes()
+    assert np.load(want).dtype.str == "|V2"
+
+
+def test_checkpoint_restores_reference_and_uint16_bf16_files(tmp_path):
+    """The port restores a bf16 leaf from the reference's file (2-byte
+    voids under an ml_dtypes header) and from the ``uint16`` file that
+    earlier versions of the port wrote, to the same bits."""
+    import json
+    import ml_dtypes
+    w = _bf16_values()
+    bits = w.view(torch.int16).numpy()
+    files = {"ref": w.float().numpy().astype(ml_dtypes.bfloat16),
+             "uint16": bits.view(np.uint16)}
+    for step, (name, arr) in enumerate(files.items(), start=1):
+        d = tmp_path / f"step_{step:08d}"
+        d.mkdir()
+        np.save(d / "w.npy", arr)
+        (d / "manifest.json").write_text(json.dumps({
+            "step": step, "extra": {}, "leaves": {"w": {
+                "file": "w.npy", "shape": list(w.shape),
+                "dtype": "bfloat16"}}}))
+        _, got, _ = CheckpointManager(tmp_path).restore(
+            {"w": torch.zeros_like(w)}, step=step, device="cpu")
+        assert got["w"].dtype == torch.bfloat16, name
+        np.testing.assert_array_equal(got["w"].view(torch.int16).numpy(),
+                                      bits, err_msg=name)
+
+
 def test_checkpoint_async_and_gc(tmp_path):
     mgr = CheckpointManager(tmp_path, keep=2)
     state = {"a": torch.zeros((8,))}
@@ -347,14 +392,18 @@ def test_checkpoint_async_and_gc(tmp_path):
         mgr.restore({"missing": torch.zeros(1)}, device="cpu")
 
 
-def test_trainer_crash_resume_bitwise(tmp_path):
+@pytest.mark.parametrize("seq", [16, 1024])
+def test_trainer_crash_resume_bitwise(tmp_path, seq):
     """Failure injection and restore reproduce the uninterrupted run
-    exactly (deterministic data and checkpointed state)."""
+    exactly (deterministic data and checkpointed state).  At 1024 tokens
+    attention takes the flash path, and the step runs with the default
+    number of CPU threads: the whole step must be reproducible, not only
+    the checkpoint."""
     cfg = smoke(get("llama3.2-3b"))
-    t1 = Trainer(cfg, global_batch=4, seq_len=16, ckpt_dir=tmp_path / "a",
+    t1 = Trainer(cfg, global_batch=4, seq_len=seq, ckpt_dir=tmp_path / "a",
                  device="cpu")
     log1 = t1.run(6, ckpt_every=2)
-    t2 = Trainer(cfg, global_batch=4, seq_len=16, ckpt_dir=tmp_path / "b",
+    t2 = Trainer(cfg, global_batch=4, seq_len=seq, ckpt_dir=tmp_path / "b",
                  device="cpu")
     crashed = []
 
@@ -373,6 +422,28 @@ def test_trainer_crash_resume_bitwise(tmp_path):
         assert torch.equal(a, b)
     for a, b in zip(tree_leaves(t1.opt_state), tree_leaves(t2.opt_state)):
         assert torch.equal(a, b)
+
+
+def test_value_and_grad_is_bitwise_reproducible_at_1024_tokens():
+    """Two equal gradient computations on the smoke Llama at 4 x 1024
+    tokens, with the default number of CPU threads, give the same bits in
+    every leaf.  The embedding's backward was the one that did not: plain
+    indexing's backward is an accumulating ``index_put_`` that adds in
+    parallel in no fixed order above its grain size (``embed`` differed by
+    up to 9.3e-10 of a largest 8.4e-3, the other leaves were equal)."""
+    cfg = smoke(get("llama3.2-3b"))
+    params = init_params(cfg, 0, "cpu")
+    loss_fn = build_forward(cfg, "loss")
+    batch = {k: torch.from_numpy(v) for k, v in
+             TokenDataset(cfg.vocab, 1024, 4, seed=3).batch_at(0).items()}
+    (l1, g1), (l2, g2) = (
+        _value_and_grad(lambda p, b: loss_fn(p, b, cfg), params, batch)
+        for _ in range(2))
+    assert torch.equal(l1, l2)
+    leaves1, leaves2 = tree_leaves(g1), tree_leaves(g2)
+    assert len(leaves1) == 11
+    for i, (a, b) in enumerate(zip(leaves1, leaves2)):
+        assert torch.equal(a, b), (i, float((a - b).abs().max()))
 
 
 def test_trainer_microbatching_equivalence(tmp_path):

@@ -25,7 +25,15 @@ paths on the card, checking that each went through its kernels:
   from seed 0, batch 4 x 2048 tokens, 3 steps each, with a check that 3
   steps on one fixed batch lower its loss each step; one training step of
   the three smoke configs on the card against the CPU; and a crash/resume
-  of the smoke Llama that must equal the uninterrupted run bit for bit.
+  of the smoke Llama that must equal the uninterrupted run bit for bit;
+- slice 7: the tracer front end: ``synthesize(fn, *args, axis_sizes=...)``
+  of the paper's programs (stencil2d, dp_train; pipeline from its
+  TraceSession) and the three ported zoo scenarios (transformer-dp,
+  flash-ring, ssm-decode) at their defaults, each replayed and scored on
+  the card, with comm lossless, the proxy-block launches the fit and the
+  grammar predict, and the TraceStore and delta_bar of the same run on the
+  CPU; then the walker's costs of the full Llama 3.2 3B and Mamba2 2.7B
+  prefill, decode and train steps (batch 4 x 2048), which launch nothing.
 
 Then it times every kernel against its plain version, its bound and, where
 one PyTorch call computes the same function, that call; for the two
@@ -494,6 +502,119 @@ def phase_per_rank_seeds(res) -> None:
     worst = check_states(batched, single, "per_rank_seeds batched vs per-rank")
     print(f"per-rank seeds: batched {1e3 * (t1 - t0):.1f} ms, per-rank "
           f"{1e3 * (t2 - t1):.1f} ms, max |diff| = {worst:.3g}")
+
+
+TRACE_SCENARIOS = ("transformer-dp", "flash-ring", "ssm-decode")
+#: full-width model costs the trace phase walks: batch 4 x 2048 tokens,
+#: decode against a cache of 8192
+TRACE_COST_ARCHS = ("llama3.2-3b", "mamba2-2.7b")
+TRACE_COST_KINDS = ("prefill", "decode", "train")
+TRACE_DELTA_ATOL = 1e-12
+
+
+def trace_targets() -> list:
+    """(name, synthesize(...) of it with the caller's keywords) of the
+    paper's three programs at their default sizes and the three ported zoo
+    scenarios at their defaults."""
+    from repro_torch.configs.registry import build_scenario
+    from repro_torch.core.synthesize import synthesize
+    from repro_torch.workloads import PROGRAMS, pipeline_traces
+    out = []
+    for name, make in PROGRAMS.items():
+        fn, args, axes = make()
+        out.append((name, lambda fn=fn, args=args, axes=axes, **kw:
+                    synthesize(fn, *args, axis_sizes=axes, **kw)))
+    traces = pipeline_traces()
+    out.append(("pipeline",
+                lambda **kw: synthesize(rank_traces=traces, **kw)))
+    for name in TRACE_SCENARIOS:
+        out.append((name, lambda name=name, **kw: synthesize(
+            store=build_scenario(name), **kw)))
+    return out
+
+
+def predicted_launches(res) -> dict:
+    """mxu_iter / stream_iter launches of one batched ``run_all``: one pass
+    a signature group, one launch a compute terminal in the group's stream
+    whose fitted combination has mxu_vmem / hbm_stream turns."""
+    from repro_torch.core.events import is_comm
+    gid = {ev.key(): i for i, ev in enumerate(res.merged.table.events)}
+    out = {"mxu_iter": 0, "stream_iter": 0}
+    for _sig, grp in res.proxy.signature_groups():
+        g = res.grammars[grp[0]]
+        for i in res.rank_ids[grp[0]]:
+            ev = g.table[i]
+            if is_comm(ev):
+                continue
+            x = res.proxy.combos[gid[ev.key()]][0]
+            out["mxu_iter"] += int(x[0] > 0)
+            out["stream_iter"] += int(x[2] > 0)
+    return out
+
+
+def phase_trace(dev) -> dict:
+    """Slice 7: the tracer front end on the card.  Each program and
+    scenario is traced (on meta tensors), synthesized with the fit and the
+    replay on the card, replayed and scored; the same on the CPU must give
+    the same TraceStore and the same delta_bar.  Then the walker's costs of
+    the full Llama 3.2 3B and Mamba2 2.7B steps, which launch nothing."""
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import _model_costs
+    out_dir = ROOT / "build" / "chip_smoke_trace"
+    rows = {}
+    for name, target in trace_targets():
+        t0 = time.perf_counter()
+        res = target(out_dir=out_dir)          # device None: the card
+        t1 = time.perf_counter()
+        reset_counts()
+        res.proxy.run_all()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_counts()
+        fid = res.fidelity(sample_ranks=None)
+        want = predicted_launches(res)
+        cpu = target(out_dir=out_dir, device="cpu")
+        cpu.proxy.run_all()
+        fid_cpu = cpu.fidelity(sample_ranks=None)
+        row = {"events": res.stats["n_events"],
+               "terminals": res.stats["n_unique_terminals"],
+               "synthesize_ms": 1e3 * (t1 - t0), "run_all_ms": 1e3 * (t2 - t1),
+               "delta_bar": fid.mean, "delta_bar_cpu": fid_cpu.mean,
+               "comm_lossless": bool(fid.comm_lossless),
+               "launches": {k: launches[k] for k in want}, "predicted": want,
+               "store": res.store.content_hash()[:16]}
+        print(f"trace {name}: {json.dumps(row)}")
+        if not fid.comm_lossless:
+            fail(f"trace {name}: comm sequences not lossless")
+        if {k: launches[k] for k in want} != want:
+            fail(f"trace {name}: launches {launches} != predicted {want}")
+        if any(launches[k] for k in launches if k not in want):
+            fail(f"trace {name}: a model kernel launched in replay")
+        if res.store.content_hash() != cpu.store.content_hash():
+            fail(f"trace {name}: the TraceStore differs from the CPU's")
+        if abs(fid.mean - fid_cpu.mean) > TRACE_DELTA_ATOL:
+            fail(f"trace {name}: delta_bar {fid.mean!r} != CPU "
+                 f"{fid_cpu.mean!r}")
+        rows[name] = row
+    costs = {}
+    for arch in TRACE_COST_ARCHS:
+        cfg = get(arch)
+        for kind in TRACE_COST_KINDS:
+            reset_counts()
+            t0 = time.perf_counter()
+            vec = _model_costs(cfg, (kind,), b=4, s=2048)[kind]
+            secs = time.perf_counter() - t0
+            launched = {k: v for k, v in read_counts().items() if v}
+            costs[f"{arch} {kind}"] = {"cost": [int(v) for v in vec],
+                                       "walk_s": secs}
+            print(f"trace cost {arch} {kind} (b 4 x 2048"
+                  f"{', cache 8192' if kind == 'decode' else ''}): "
+                  f"{[int(v) for v in vec]} in {secs:.2f} s")
+            if launched:
+                fail(f"walking {arch} {kind} launched kernels: {launched}")
+            if not all(math.isfinite(v) for v in vec) or vec[0] <= 0:
+                fail(f"walking {arch} {kind}: cost {vec}")
+    return {"targets": rows, "costs": costs}
 
 
 def flash_inputs(gen, b, s, h, g, d, dtype, dev):
@@ -1738,6 +1859,10 @@ def main() -> None:
     rows = phase_timings(dev, launches, errs)
     train, bwd = phase_train(dev, errs)
     print(json.dumps({"train": train}))
+    t0 = time.perf_counter()
+    trace = phase_trace(dev)
+    trace["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"trace": trace}))
     rows.append({"name": "flash_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/flash_attention/"
                            "backward.cu",

@@ -1,14 +1,25 @@
-"""Architecture registry: ``get(arch_id)`` resolves the assigned ids.
+"""Architecture registry and the scenario zoo.
 
-The id table and ``get`` of ``src/repro/configs/registry.py:31-49``; the
-dry-run input specs and the scenario builders of that module wait for the
-port's scenario registry.
+``get(arch_id)`` resolves the assigned ids (``src/repro/configs/
+registry.py:31-49``).  ``SCENARIOS``/:func:`build_scenario` are the port of
+the reference's model-zoo workloads (``registry.py:146-314``): one traced
+scenario per model family, combining real compute costs (the cost walker
+over the family's smoke-config step functions on meta tensors:
+:func:`_model_costs`) with the family's canonical parallelism schedule
+recorded through :class:`~repro_torch.core.tracer.TraceSession`.  Builders
+return columnar :class:`~repro_torch.core.trace_ir.TraceStore` traces.
+The ``moe`` and ``encdec`` families wait for their models (ROADMAP items 2
+and 3), and ``ingest_scenarios`` for the corpus store (item 8).  The
+dry-run input specs wait for the sharding substrate (item 12).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
-from repro_torch.configs.base import ArchConfig
+import torch
+
+from repro_torch.configs.base import ArchConfig, smoke
 
 _MODULES = {
     "gemma3-4b": "gemma3_4b",
@@ -29,3 +40,174 @@ ARCH_IDS = tuple(_MODULES)
 def get(arch_id: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
+
+
+# ---------------------------------------------------------------------------
+# scenario zoo (corpus-level synthesis targets)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScenarioSpec:
+    """One model-zoo workload: which architecture's step functions provide
+    the (walked) compute costs, and which parallelism schedule shapes the
+    recorded communication pattern."""
+    name: str
+    arch_id: str
+    family: str          # transformer | flash | ssm | moe | encdec
+    parallelism: str
+    n_ranks: int         # default trace width
+    steps: int           # default steps / microbatches / decode tokens
+
+
+SCENARIOS: dict[str, ScenarioSpec] = {
+    "transformer-dp": ScenarioSpec(
+        "transformer-dp", "qwen3-8b", "transformer", "data_parallel", 8, 4),
+    "flash-ring": ScenarioSpec(
+        "flash-ring", "gemma3-4b", "flash", "ring_attention", 8, 2),
+    "ssm-decode": ScenarioSpec(
+        "ssm-decode", "mamba2-2.7b", "ssm", "tp_decode", 8, 6),
+    "moe-ep": ScenarioSpec(
+        "moe-ep", "deepseek-moe-16b", "moe", "expert_parallel", 8, 4),
+    "encdec-pipeline": ScenarioSpec(
+        "encdec-pipeline", "whisper-large-v3", "encdec", "pipeline", 8, 4),
+}
+
+SCENARIO_IDS = tuple(SCENARIOS)
+
+#: families whose models the port does not have yet, and the ROADMAP item
+#: that brings them
+_WAITING = {"moe": "item 2 (MoE)",
+            "encdec": "item 3 (cross-attention and the encoder-decoder)"}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _batch_sds(cfg: ArchConfig, b: int, s: int, kind: str) -> dict:
+    """Batch of meta tensors (tracing needs shapes only).  Decode steps
+    never carry the modalities (prefill populated the cache)."""
+    out = {"tokens": _meta((b, s), torch.int32)}
+    if kind == "loss":
+        out["labels"] = _meta((b, s), torch.int32)
+    dt = getattr(torch, cfg.dtype)
+    if cfg.n_vision_tokens and kind != "decode":
+        out["vision_embeds"] = _meta((b, cfg.n_vision_tokens, cfg.d_model), dt)
+    if cfg.n_audio_frames and kind != "decode":
+        out["audio_frames"] = _meta((b, cfg.n_audio_frames, cfg.d_model), dt)
+    return out
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _model_costs(cfg: ArchConfig, kinds=("train", "prefill", "decode"),
+                 b: int = 2, s: int = 8) -> dict[str, tuple]:
+    """The six-metric costs of the family's step functions: train (loss and
+    its gradient in every parameter), prefill of ``s`` tokens, and one
+    decode step against a cache of ``4 s``, walked on meta tensors.
+
+    The reference traces the decode position as a scalar; the port's decode
+    takes a Python int, here ``s`` (the token after an ``s``-token
+    prompt)."""
+    from repro_torch.core.tracer import compute_cost
+    from repro_torch.models.model import (
+        abstract_cache, build_forward, init_abstract,
+    )
+
+    params = init_abstract(cfg)
+    out: dict[str, tuple] = {}
+    if "train" in kinds:
+        loss = build_forward(cfg, "loss")
+
+        def value_and_grad(p, bt):
+            leaves = _leaves(p)
+            for t in leaves:
+                t.requires_grad_(True)
+            with torch.enable_grad():
+                val = loss(p, bt, cfg)
+                grads = torch.autograd.grad(val, leaves, allow_unused=True)
+            return val, grads
+
+        out["train"] = tuple(compute_cost(value_and_grad, params,
+                                          _batch_sds(cfg, b, s, "loss")))
+    if "prefill" in kinds:
+        prefill = build_forward(cfg, "prefill")
+        out["prefill"] = tuple(compute_cost(
+            lambda p, bt: prefill(p, bt, cfg), params,
+            _batch_sds(cfg, b, s, "prefill")))
+    if "decode" in kinds:
+        decode = build_forward(cfg, "decode")
+        cache = abstract_cache(cfg, b, 4 * s)
+        out["decode"] = tuple(compute_cost(
+            lambda p, c, bt: decode(p, c, bt, s, cfg), params, cache,
+            _batch_sds(cfg, b, 1, "decode")))
+    return out
+
+
+def build_scenario(name: str, n_ranks: int | None = None,
+                   steps: int | None = None):
+    """Trace one zoo scenario into a columnar
+    :class:`~repro_torch.core.trace_ir.TraceStore`."""
+    from repro_torch.core.events import CommEvent, ComputeEvent
+    from repro_torch.core.tracer import TraceSession, compute_cost
+
+    spec = SCENARIOS[name]
+    if spec.family in _WAITING:
+        raise NotImplementedError(
+            f"scenario {name!r}: the {spec.family} family is not ported yet "
+            f"(ROADMAP {_WAITING[spec.family]})")
+    n = spec.n_ranks if n_ranks is None else n_ranks
+    steps = spec.steps if steps is None else steps
+    cfg = smoke(get(spec.arch_id))
+    kinds = {"transformer": ("train",), "flash": ("prefill",),
+             "ssm": ("decode",)}[spec.family]
+    costs = _model_costs(cfg, kinds)
+    d = cfg.d_model
+
+    if spec.family == "transformer":
+        # data-parallel training: step compute + bucketed gradient psums
+        g1 = CommEvent("psum", (d, cfg.d_ff), "float32", ("dp",))
+        g2 = CommEvent("psum", (cfg.padded_vocab, d), "float32", ("dp",))
+        with TraceSession(n, {"dp": n}) as sess:
+            for _ in range(steps):
+                sess.emit(None, ComputeEvent(costs["train"]))
+                sess.emit(None, g1)
+                sess.emit(None, g2)
+        return sess.to_store()
+
+    if spec.family == "flash":
+        # ring-attention prefill: per hop, one flash chunk + KV-block shift
+        from repro_torch.models.flash import flash_attention
+        b, s, h, g, hd = 2, 16, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q = _meta((b, s, h, hd), torch.float32)
+        kv = _meta((b, s, g, hd), torch.float32)
+        chunk = tuple(compute_cost(
+            lambda q, k, v: flash_attention(q, k, v, causal=False,
+                                            q_chunk=8, kv_chunk=8),
+            q, kv, kv))
+        shift = CommEvent("ppermute", (b, s, g, hd), "float32", ("ring",),
+                          ("shift", 1))
+        with TraceSession(n, {"ring": n}) as sess:
+            for _ in range(steps):
+                for _hop in range(n - 1):
+                    sess.emit(None, ComputeEvent(chunk))
+                    sess.emit(None, shift)
+                sess.emit(None, ComputeEvent(costs["prefill"]))
+                sess.emit(None, CommEvent("all_gather", (b, s // 2 or 1, d),
+                                          "float32", ("ring",), (0,)))
+        return sess.to_store()
+
+    # ssm: tensor-parallel decode, one SSM decode step + logits psum a token
+    logits = CommEvent("psum", (2, cfg.padded_vocab), "float32", ("mp",))
+    with TraceSession(n, {"mp": n}) as sess:
+        for _ in range(steps):
+            sess.emit(None, ComputeEvent(costs["decode"]))
+            sess.emit(None, logits)
+    return sess.to_store()

@@ -22,6 +22,24 @@ Three rules carry the reference's jaxpr conventions over to aten:
   ``(n, 1)`` column built by ``broadcast_in_dim``: ``aten.index`` charges
   that column's bytes too.  (jnp's negative-index wrap is written out in
   the block itself, see :func:`repro_torch.core.blocks.gather_rand`.)
+
+A matrix product is one ``dot_general`` equation in the reference, and
+``torch.matmul``/``@``/``torch.einsum`` decompose into views, a GEMM and
+more views in aten: the walker charges such a call at the function level
+(:func:`dot_cost`: the GEMM's flops, operands plus result bytes, and the
+``transpose`` jnp adds when the output's dim order is not dot_general's),
+and nothing for the aten ops it decomposes into.  ``reshape`` likewise is
+one equation (:func:`reshape_cost`) where aten may copy and view, and
+``repeat_interleave`` is jnp.repeat's two (:func:`repeat_cost`); an int
+index (``aten.select``) is jnp's slice and squeeze (:func:`select_cost`).  A
+filled new tensor (``zeros``, ``full``) is jnp's ``broadcast_in_dim`` of a
+literal: bytes only.
+
+A fused aten op that stands for a whole jnp function is charged the
+equations that function's jaxpr holds: ``aten._softmax`` and
+``aten._log_softmax`` what ``jax.nn.softmax`` and ``jax.nn.log_softmax``
+charge on JAX 0.9, and their backward ops what the VJP adds on top of the
+forward (:func:`softmax_cost`).
 """
 from __future__ import annotations
 
@@ -57,15 +75,23 @@ DATA_MOVEMENT_OPS = {
     "alias", "split", "split_with_sizes", "unbind", "repeat", "arange",
 }
 
+#: ops that fill a new tensor with one value: jnp's ``broadcast_in_dim`` of
+#: a literal (bytes: the literal and the result)
+FILL_OPS = {"full", "zeros", "ones", "new_full", "new_zeros", "new_ones"}
+
 #: zero-cost bookkeeping ops
 FREE_OPS = {"detach", "empty", "empty_like", "zeros_like", "lift_fresh",
-            "_local_scalar_dense"}
+            "_local_scalar_dense", "scalar_tensor"}
 
 #: reductions: element ops equal the input size
 REDUCE_OPS = {"sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin",
               "prod", "any", "all", "cumsum", "cumprod", "logsumexp"}
 
 MATMUL_OPS = {"mm", "bmm", "matmul", "addmm", "baddbmm"}
+
+#: softmax-family ops, charged by :func:`softmax_cost`
+SOFTMAX_OPS = {"_softmax", "_softmax_backward_data", "_log_softmax",
+               "_log_softmax_backward_data"}
 
 
 def dtype_name(dtype) -> str:
@@ -110,12 +136,169 @@ def matmul_flops(name: str, tensors: list[torch.Tensor]) -> int:
     return 2 * batch * m * n * k
 
 
+def _dot_bytes(ins, out: torch.Tensor) -> int:
+    return sum(tensor_bytes(t) for t in ins) + tensor_bytes(out)
+
+
+def select_cost(x: torch.Tensor, index: int, out: torch.Tensor) -> np.ndarray:
+    """``x[i]`` with a Python int: jnp's ``slice`` then ``squeeze`` (a
+    negative index: ``dynamic_slice``, a gather of its int32 start, then
+    ``squeeze``)."""
+    c = np.zeros(N_METRICS, dtype=np.float64)
+    ob = tensor_bytes(out)
+    c[I_BYTES] = tensor_bytes(x) + 3 * ob
+    if index < 0:
+        c[I_BYTES] += 4
+        c[I_VPU] = c[I_GATHER] = out.numel()
+    return c
+
+
+def reshape_cost(x: torch.Tensor) -> np.ndarray:
+    """One ``reshape`` equation: operand plus result (aten: a view, or a
+    copy and a view when the operand is not contiguous)."""
+    c = np.zeros(N_METRICS, dtype=np.float64)
+    c[I_BYTES] = 2 * tensor_bytes(x)
+    return c
+
+
+def repeat_cost(x: torch.Tensor, out: torch.Tensor) -> np.ndarray:
+    """``jnp.repeat(x, r, axis)`` with a static ``r``: a ``broadcast_in_dim``
+    to a new dim of ``r`` and a ``reshape`` that merges it."""
+    c = np.zeros(N_METRICS, dtype=np.float64)
+    c[I_BYTES] = tensor_bytes(x) + 3 * tensor_bytes(out)
+    return c
+
+
+def dot_cost(name: str, args, out) -> np.ndarray | None:
+    """Cost of ``torch.matmul`` / ``@`` / a two-operand ``torch.einsum`` as
+    the reference's one ``dot_general`` (plus jnp's output transpose), or
+    None where jnp would emit more (broadcast batch dims, summed-out or
+    repeated letters, ellipses): the aten ops are charged then."""
+    c = np.zeros(N_METRICS, dtype=np.float64)
+    if name == "einsum":
+        eq = args[0]
+        ops = args[1:]
+        if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
+            ops = ops[0]
+        if (len(ops) != 2 or not isinstance(eq, str) or "..." in eq
+                or "->" not in eq):
+            return None
+        lhs, res = eq.replace(" ", "").split("->")
+        la, lb = lhs.split(",")
+        sizes: dict[str, int] = {}
+        for letters, t in ((la, ops[0]), (lb, ops[1])):
+            if len(letters) != t.dim() or len(set(letters)) != len(letters):
+                return None
+            for ch, n in zip(letters, t.shape):
+                sizes[ch] = int(n)
+        if any(ch not in res and not (ch in la and ch in lb) for ch in sizes):
+            return None
+        natural = ([ch for ch in la if ch in lb and ch in res]
+                   + [ch for ch in la if ch not in lb]
+                   + [ch for ch in lb if ch not in la])
+        c[I_MXU] = 2 * math.prod(sizes.values())
+        c[I_BYTES] = _dot_bytes(ops, out)
+        if natural != list(res):
+            c[I_BYTES] += 2 * tensor_bytes(out)
+        return c
+    a, b = args[0], args[1]
+    if a.dim() < 2 or b.dim() < 2 or (b.dim() > 2 and a.shape[:-2] != b.shape[:-2]):
+        return None
+    c[I_MXU] = matmul_flops("matmul", [a, b])
+    c[I_BYTES] = _dot_bytes((a, b), out)
+    return c
+
+
+def _softmax_eqns(e: int, r: int, nb: int, half: bool, vjp: bool,
+                  rank: int) -> list:
+    """(vpu, bytes, transcendentals) of each equation of ``jax.nn.softmax``
+    over ``e`` elements of rank ``rank`` in ``r`` rows of ``nb``-byte
+    elements on JAX 0.9
+    (``vjp``: of ``jax.vjp(softmax)(g)``, which recomputes the forward with
+    the max's tangent mask and guards).  A half dtype sums in f32 between
+    two converts."""
+    b, a = nb, (4 if half else nb)      # element bytes; the sum's
+    out = [(e, (e + r) * b, 0)]                         # reduce_max
+    if vjp:
+        # a literal guard is broadcast to the rows first, unless they are 0-d
+        lit = [(0, b + r * b, 0)] * 2 if rank > 1 else []
+        out += [(0, 2 * r * b, 0), (e, (e + r) * b + e, 0),    # reshape, eq
+                (0, e + e * b, 0), (e, (e + r) * b, 0),  # convert, reduce_sum
+                (r, b + 2 * r * b, 0), (r, 2 * r * b + r, 0)]  # max, eq
+        out += lit + [(r, r + 3 * r * b, 0), (r, b + r * b + r, 0)]  # select, eq
+        out += lit + [(r, r + 3 * r * b, 0), (r, 3 * r * b, 0)]  # select, div
+    else:
+        out += [(r, b + 2 * r * b, 0)]                  # max(-inf)
+    out += [(0, 2 * r * b, 0), (e, (2 * e + r) * b, 0),   # broadcast, sub
+            (e, 2 * e * b, e)]                          # exp
+    if half:
+        out += [(0, e * b + 4 * e, 0)]                  # convert to f32
+    out += [(e, (e + r) * a, 0), (0, 2 * r * a, 0)]     # reduce_sum, bcast
+    if half:
+        out += [(0, 4 * r + r * b, 0)]                  # convert back
+    out += [(e, (2 * e + r) * b, 0)]                    # div
+    if vjp:
+        out += [(r, 2 * r * b, r), (e, (2 * e + r) * b, 0),  # pow(-2), mul
+                (e, 3 * e * b, 0), (e, (e + r) * b, 0),  # mul, reduce_sum
+                (0, 2 * r * b, 0), (r, 2 * r * b, 0),    # reshape, neg
+                (e, (2 * e + r) * b, 0)]                 # div
+        if half:
+            out += [(0, r * b + 4 * r, 0)]
+        out += [(r, 2 * r * a, 0), (0, (r + e) * a, 0)]  # reduce_sum, bcast
+        if half:
+            out += [(0, 4 * e + e * b, 0)]
+        out += [(e, 3 * e * b, 0), (e, 3 * e * b, 0)]    # add_any, mul
+    return out
+
+
+def softmax_cost(name: str, x: torch.Tensor, dim: int) -> np.ndarray:
+    """What the reference's walker charges for the jnp function an aten
+    softmax-family op stands for, on ``x`` (the backward ops: the output
+    gradient) along ``dim``.
+
+    ``_softmax`` is ``jax.nn.softmax``'s jaxpr; ``_softmax_backward_data``
+    what ``jax.vjp`` of it adds to that (the VJP recomputes the forward with
+    the max's tangent mask).  On JAX 0.9 ``jax.nn.log_softmax`` is one
+    ``jit`` equation, which the reference's walker does not enter: it
+    charges it as one elementwise op, operands plus results (forward: x in,
+    y out; VJP: two ``jit`` equations with outputs (y, exp, sum) and (dx)),
+    and so does the port."""
+    e = x.numel()
+    r = e // max(x.shape[dim] if x.dim() else 1, 1)
+    nb = dtype_bytes(dtype_name(x.dtype))
+    c = np.zeros(N_METRICS, dtype=np.float64)
+    if name == "_log_softmax":
+        c[I_VPU], c[I_BYTES] = e, 2 * e * nb
+        return c
+    if name == "_log_softmax_backward_data":
+        c[I_VPU], c[I_BYTES] = 2 * e + r, (4 * e + 2 * r) * nb
+        return c
+    half = x.dtype in (torch.bfloat16, torch.float16)
+    fwd = np.sum(_softmax_eqns(e, r, nb, half, False, x.dim()), axis=0)
+    if name == "_softmax_backward_data":
+        fwd = np.sum(_softmax_eqns(e, r, nb, half, True, x.dim()), axis=0) - fwd
+    c[I_VPU], c[I_BYTES], c[I_TRANS] = fwd
+    return c
+
+
 def op_cost(func, args, kwargs, out) -> np.ndarray:
     """6-metric cost vector of one dispatched aten op."""
     c = np.zeros(N_METRICS, dtype=np.float64)
     name = func.overloadpacket.__name__
     if name in FREE_OPS:
         return c
+    if name in FILL_OPS:
+        out_b = sum(tensor_bytes(o) for o in (out if isinstance(
+            out, (list, tuple)) else [out]))
+        c[I_BYTES] = out_b + dtype_bytes(dtype_name(
+            (out[0] if isinstance(out, (list, tuple)) else out).dtype))
+        return c
+    if name == "select":
+        return select_cost(args[0], int(args[2]), out)
+    if name in SOFTMAX_OPS:
+        # (self, dim, half_to_float) / (grad_output, output, dim, dtype)
+        return softmax_cost(name, args[0],
+                            int(args[2 if name.endswith("_data") else 1]))
     flat = _flat_args(args, kwargs)
     ins = [a for a in flat if isinstance(a, torch.Tensor)]
     outs = [o for o in (out if isinstance(out, (list, tuple)) else [out])

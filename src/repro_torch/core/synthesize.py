@@ -12,11 +12,16 @@ One call::
     res.proxy.run_all()
     print(res.stats["compression_ratio"], res.fidelity(sample_ranks=None).mean)
 
-The front half (clustering, grammars, merge) is the reference's numpy code,
-copied; the fit and the replay run on ``device`` (``None`` means the CUDA
-card).  Tracing a user's step function (``synthesize(fn, ...)``) needs the
-torch tracer for whole programs with collectives, which is not ported yet;
-corpus synthesis is not ported yet either.
+or, from a per-rank torch program whose collectives are the wrappers of
+:mod:`repro_torch.sharding.collectives`::
+
+    res = synthesize(step, u, w, axis_sizes={"x": 8})
+
+The program is walked on meta tensors (:func:`~repro_torch.core.tracer.
+trace_fn_store`): nothing of it runs, on any device.  The front half
+(clustering, grammars, merge) is the reference's numpy code, copied; the
+fit and the replay run on ``device`` (``None`` means the CUDA card).
+Corpus synthesis is not ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from repro_torch.core.grammar import Grammar, TerminalTable
 from repro_torch.core.interproc import MergedProgram
 from repro_torch.core.replay import ProxyProgram, load_module
 from repro_torch.core.trace_ir import TraceStore, compress_store
+from repro_torch.core.tracer import trace_fn_store
 from repro_torch.device import resolve_device
 
 
@@ -150,9 +156,10 @@ def synthesize(fn: Callable | None = None, *args,
                count_scale: float = 1.0,
                out_dir=None,
                device=None) -> SynthesisResult:
-    """Synthesize a proxy-app from pre-recorded traces or a saved columnar
-    :class:`TraceStore` (``TraceStore.load(path)``: the reference's ``.npz``
-    format, unchanged).
+    """Synthesize a proxy-app from a per-rank program ``fn(*args)``, from
+    pre-recorded traces, or from a saved columnar :class:`TraceStore`
+    (``TraceStore.load(path)``: the reference's ``.npz`` format, unchanged).
+    ``axis_sizes`` gives the mesh axes ``fn``'s collectives name.
 
     ``solver="auto"`` picks exact NNLS up to
     :data:`~repro_torch.core.proxy_search.PGD_TERMINAL_THRESHOLD` distinct
@@ -166,13 +173,9 @@ def synthesize(fn: Callable | None = None, *args,
         if rank_traces is not None:
             store = TraceStore.from_rank_traces(rank_traces, axis_sizes)
         elif fn is not None:
-            raise NotImplementedError(
-                "synthesize(fn, ...) needs the torch tracer for whole "
-                "programs with collectives (TraceSession and instrumented "
-                "collectives), which is not ported yet; pass rank_traces= "
-                "or store=")
+            store = trace_fn_store(fn, *args, axis_sizes=axis_sizes)
         else:
-            raise ValueError("need rank_traces or store")
+            raise ValueError("need fn, rank_traces or store")
     axis_sizes = dict(store.axis_sizes if axis_sizes is None else axis_sizes)
 
     grammars, merged, rank_ids, reps = compress_store(store, rel_tol,

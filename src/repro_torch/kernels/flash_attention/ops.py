@@ -3,7 +3,11 @@
 ``flash_bwd``).
 
 A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises (no fallback).  ``LAUNCHES`` counts wrapper calls that
+the kernel or raises (no fallback).  Meta tensors (the cost walker's) take
+the reference's blocked XLA flash (``attention_blocked_ref`` and
+``attention_blocked_bwd_ref`` with ``q_chunk``/``kv_chunk``): outputs of
+the kernels' shapes and dtypes, charged what the reference's walker
+charges, and no launch.  ``LAUNCHES`` counts wrapper calls that
 launched their kernel, one per call and nowhere else (``flash_bwd`` is
 three kernels on one stream: D = rowsum(dO o O), dQ, and dK/dV).
 """
@@ -17,6 +21,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import (
+    KV_CHUNK, Q_CHUNK, attention_blocked_bwd_ref, attention_blocked_ref,
     attention_bwd_ref, attention_ref,
 )
 from repro_torch.kernels.proxy_blocks.ops import _aligned, _stream_handle
@@ -68,18 +73,28 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return b, s, t, h, g, d
 
 
+def _on(kind: str, *xs: torch.Tensor) -> bool:
+    return all(x.device.type == kind for x in xs)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
-                        return_lse: bool = False):
+                        return_lse: bool = False, q_chunk: int = Q_CHUNK,
+                        kv_chunk: int = KV_CHUNK):
     """q: (b,s,h,d); k/v: (b,t,g,d) -> (b,s,h,d) in q's dtype, and with
     ``return_lse`` also each row's log-sum-exp (b,s,h) in f32 (natural log;
     what the backward needs).  Without it the kernel writes no LSE.
 
     ``window`` limits a causal row to its last ``window`` keys and is
-    ignored without ``causal``, as in the reference's kernel."""
-    if all(x.device.type == "cpu" for x in (q, k, v)):
+    ignored without ``causal``, as in the reference's kernel.
+    ``q_chunk``/``kv_chunk`` are the blocks of the reference's XLA flash
+    that meta tensors are costed as; no other device reads them."""
+    if _on("cpu", q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window,
                              return_lse=return_lse)
+    if _on("meta", q, k, v):
+        return attention_blocked_ref(q, k, v, causal, window, q_chunk,
+                                     kv_chunk, return_lse=return_lse)
     b, s, t, h, g, d = _check("flash_attention_fwd", q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
@@ -101,14 +116,20 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
-                        window: int | None = None):
+                        window: int | None = None, q_chunk: int = Q_CHUNK,
+                        kv_chunk: int = KV_CHUNK):
     """Gradients (dq (b,s,h,d), dk, dv (b,t,g,d)) of the attention whose
     forward gave ``out`` and ``lse`` (:func:`flash_attention_fwd` with
     ``return_lse``), for the output gradient ``dout``; dk and dv sum the
-    query heads of each KV group.  Outputs in q's dtype."""
-    if all(x.device.type == "cpu" for x in (q, k, v, out, lse, dout)):
+    query heads of each KV group.  Outputs in q's dtype.  ``q_chunk`` and
+    ``kv_chunk`` are read only on meta tensors, as in the forward."""
+    ins = (q, k, v, out, lse, dout)
+    if _on("cpu", *ins):
         return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                  window=window)
+    if _on("meta", *ins):
+        return attention_blocked_bwd_ref(q, k, v, out, lse, dout, causal,
+                                         window, q_chunk, kv_chunk)
     b, s, t, h, g, d = _check("flash_attention_bwd", q, k, v, out, dout)
     if (lse.device != q.device or lse.dtype != torch.float32
             or lse.shape != (b, s, h)):

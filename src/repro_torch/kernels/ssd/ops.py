@@ -1,8 +1,10 @@
 """Wrapper of the SSD diagonal-block CUDA kernel (``kernel.cu``), and its
 gradient.
 
-A CPU tensor takes the plain version in ``ref.py``; a CUDA tensor launches
-the kernel or raises (no fallback).  ``LAUNCHES`` counts kernel launches,
+A CPU tensor takes the plain version in ``ref.py``, and so does a meta
+tensor (the cost walker's: the walker charges the plain version, and
+nothing launches); a CUDA tensor launches the kernel or raises (no
+fallback).  ``LAUNCHES`` counts kernel launches,
 one per launch and nowhere else.  The reference's wrapper cuts the heads
 into slabs of at most 8 (a VMEM limit of the TPU); this one launches once
 for all of them.
@@ -50,7 +52,8 @@ def ssd_diag_block(xc: torch.Tensor, dtc: torch.Tensor, cum: torch.Tensor,
     with h = g·r.  Returns y_diag (b,c,q,h,p) in ``out_dtype``, by default
     xc's dtype (the TPU kernel's contract)."""
     ins = (xc, dtc, cum, bc, cc)
-    if all(x.device.type == "cpu" for x in ins):
+    if (all(x.device.type == "cpu" for x in ins)
+            or all(x.device.type == "meta" for x in ins)):
         return ssd_diag_ref(xc, dtc, cum, bc, cc, r, out_dtype)
     if xc.device.type != "cuda" or any(x.device != xc.device for x in ins):
         raise ValueError("ssd_diag_block: inputs on "

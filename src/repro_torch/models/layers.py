@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.tracer import scan_loop
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 
@@ -165,11 +167,18 @@ def chunked_loss(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
     O(S·V).  Each chunk is checkpointed, so its logits are not kept for the
     backward either: the backward recomputes one chunk's at a time.  Chunk
     sums are added in order into an f32 total, as the reference's scan."""
-    b, s, _ = x.shape
+    b, s, d = x.shape
     if chunk <= 0 or s % chunk != 0 or s == chunk:
         return softmax_xent(unembed(x, table), labels, table.shape[0]).mean()
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(0, s, chunk):
-        total = total + checkpoint(_chunk_xent_sum, x[:, i:i + chunk], table,
-                                   labels[:, i:i + chunk], use_reentrant=False)
+    n = s // chunk
+    xc = x.reshape(b, n, chunk, d).transpose(0, 1)           # (n, b, chunk, d)
+    lc = labels.reshape(b, n, chunk).transpose(0, 1)
+
+    def body(acc, xl):
+        xi, li = xl
+        return acc + checkpoint(_chunk_xent_sum, xi, table, li,
+                                use_reentrant=False)
+
+    total = scan_loop(n, body, torch.zeros((), dtype=torch.float32,
+                                           device=x.device), xs=(xc, lc))
     return total / (b * s)

@@ -4,7 +4,9 @@ functions.
 The port of ``src/repro/models/model.py``.  ``build_forward(cfg, kind)``
 returns the training loss, the prefill or the decode step; ``init_params``
 draws concrete weights on a device; ``params_from_numpy`` carries the
-reference's weights across value for value.  The encoder-decoder family
+reference's weights across value for value.  ``init_abstract`` and
+``abstract_cache`` are the reference's shape-only stand-ins: meta tensors,
+which the cost walker runs on.  The encoder-decoder family
 waits for a later slice of the port and raises.
 """
 from __future__ import annotations
@@ -40,6 +42,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     return init_tree(param_tree(cfg), seed, resolve_device(device))
 
 
+def init_abstract(cfg: ArchConfig) -> dict:
+    """The parameter tree as meta tensors (shapes and dtypes only): the
+    reference's ``init_abstract``."""
+    return init_params(cfg, 0, "meta")
+
+
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -69,3 +77,9 @@ def build_forward(cfg: ArchConfig, kind: str) -> Callable:
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
     _check_family(cfg)
     return T.init_lm_cache(cfg, batch, seq_len, resolve_device(device))
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """The decode cache as meta tensors: the reference's
+    ``abstract_cache``."""
+    return init_cache(cfg, batch, seq_len, "meta")

@@ -14,13 +14,16 @@ Y_diag, the quadratic-in-chunk hot spot, goes through the SSD kernel
 (``kernels/ssd``: CUDA on the card, its plain version on the CPU) and stays
 in f32, as the reference's einsum path keeps it.  The rest is plain torch
 with the reference's dtype flow: where the reference mixes bf16 and f32
-operands, JAX promotes to f32, so the port casts to f32 explicitly.
+operands, JAX promotes to f32, so the port casts to f32 explicitly (in a
+product through :func:`~repro_torch.core.tracer.einsum`/``matmul``, which
+the cost walker charges as jnp's one mixed-dtype ``dot_general``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.tracer import einsum, matmul, scan_loop
 from repro_torch.kernels.ssd.ops import ssd_diag
 from repro_torch.models.layers import Param
 
@@ -105,20 +108,25 @@ def ssd_chunked(x, dt, a, bm, cm, chunk: int, return_final: bool = False):
     w = dtc * decay_to_end
     bg = bc.reshape(b, c, q, g, 1, n)
     s_c = torch.einsum("bcqgrn,bcqgrp->bcgrnp",
-                       bg.expand(b, c, q, g, r, n) * w.reshape(b, c, q, g, r, 1),
+                       bg.expand(b, c, q, g, r, n).float()
+                       * w.reshape(b, c, q, g, r, 1),
                        xc.float().reshape(b, c, q, g, r, p))
 
-    # inter-chunk recurrence
+    # inter-chunk recurrence: a scan over the chunks, as the reference's
     cdg = torch.exp(torch.sum(adt, dim=2)).reshape(b, c, g, r)
-    hstate = torch.zeros((b, g, r, n, p), dtype=torch.float32, device=x.device)
-    hs = []
-    for ci in range(c):
-        hs.append(hstate)
-        hstate = hstate * cdg[:, ci, ..., None, None] + s_c[:, ci]
-    hs = torch.stack(hs, dim=1)                              # (b,c,g,r,n,p)
+
+    def scanbody(hstate, inputs):
+        dcy, s = inputs                                   # (b,g,r), (b,g,r,n,p)
+        return hstate * dcy[..., None, None] + s, hstate
+
+    h0 = torch.zeros((b, g, r, n, p), dtype=torch.float32, device=x.device)
+    hstate, hs = scan_loop(c, scanbody, h0,
+                           xs=(cdg.transpose(0, 1), s_c.transpose(0, 1)),
+                           stack_ys=True)
+    hs = hs.transpose(0, 1)                                  # (b,c,g,r,n,p)
 
     # off-diagonal: Y_off = (C · H_in) * exp(cum)
-    y_off = torch.einsum("bcqgn,bcgrnp->bcqgrp", cc.float(), hs)
+    y_off = einsum("bcqgn,bcgrnp->bcqgrp", cc, hs)
     y_off = y_off * torch.exp(cum).reshape(b, c, q, g, r, 1)
     y = y_diag.reshape(b, c, q, g, r, p) + y_off
     y = y.reshape(b, l, h, p).to(x.dtype)
@@ -212,5 +220,5 @@ def ssm_decode(p, x, cache: dict, *, head_dim: int, n_state: int,
     y = y + p["d_skip"][None, :, None] * xh
     y = y.reshape(b, d_in)
     y = _rms(y, p["norm_w"]) * F.silu(z).float()
-    out = (y @ p["out_proj"].float())[:, None].to(x.dtype)
+    out = matmul(y, p["out_proj"])[:, None].to(x.dtype)
     return out, {"state": state, "conv": new_conv}

@@ -6,9 +6,13 @@ The port of ``src/repro/models/transformer.py`` for layer kinds ``g``
 and caches keep the reference's stacked layout: layers are grouped into the
 config's repeating unit, every leaf of ``params["unit"]`` has a leading
 ``n_units`` dim, and remainder layers sit in the ``rest`` tuple.  Where the
-reference scans over the units, the port runs a Python loop over them.
-``cfg.remat`` checkpoints each unit (``torch.utils.checkpoint``, which
-saves nothing inside it: the reference's ``nothing_saveable`` policy).
+reference scans over the units, the port runs
+:func:`~repro_torch.core.tracer.scan_loop` over the stacked leaves: a
+Python loop over views of each unit, which the cost walker charges as the
+reference's walker charges the scan (the slices cost nothing, one scan
+step a unit).  ``cfg.remat`` checkpoints each unit
+(``torch.utils.checkpoint``, which saves nothing inside it: the
+reference's ``nothing_saveable`` policy).
 MoE layers and cross-attention (kind ``x``) wait for later slices of the
 port and raise.
 """
@@ -21,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.tracer import scan_loop, uncharged
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
@@ -120,20 +125,23 @@ def _index(tree: Any, i: int | None) -> Any:
     return tree[i]
 
 
-def _write_back(dst: Any, i: int | None, src: Any) -> None:
-    """Store a layer's new cache into the stacked buffers, in place (a leaf
-    that is already a view of its slot was updated in place)."""
+def _write_back(dst: Any, src: Any) -> None:
+    """Store a layer's new cache into its slot of the stacked buffers, in
+    place (a leaf that is already a view of its slot was updated in place).
+    The reference returns the new caches as the unit scan's ys, which its
+    walker charges nothing for: so does the port's."""
     if isinstance(dst, dict):
         for k in dst:
-            _write_back(dst[k], i, src[k])
+            _write_back(dst[k], src[k])
         return
     if isinstance(dst, A.KVCache):
-        _write_back(dst.k, i, src.k)
-        _write_back(dst.v, i, src.v)
+        _write_back(dst.k, src.k)
+        _write_back(dst.v, src.v)
         return
-    slot = dst if i is None else dst[i]
-    if slot.data_ptr() != src.data_ptr():
-        slot.copy_(src)
+    if dst is not src and (dst.device.type == "meta"
+                           or dst.data_ptr() != src.data_ptr()):
+        with uncharged():
+            dst.copy_(src)
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -163,18 +171,6 @@ def _apply_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
     return _ffn(cfg, p, x + mix)
 
 
-def _unbind(tree: Any) -> list:
-    """A stacked subtree as one subtree per unit.  ``torch.unbind`` gives
-    all the views in one op, so the backward stacks each leaf's gradient
-    once; indexing ``tree[i]`` per layer would add a zero tensor the size of
-    the whole stack for every layer."""
-    if isinstance(tree, dict):
-        parts = {k: _unbind(v) for k, v in tree.items()}
-        n = len(next(iter(parts.values())))
-        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
-    return list(torch.unbind(tree, 0))
-
-
 def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig):
     """Embedded input (b, s, d) -> (final hidden states (b, s, d), aux).
 
@@ -185,19 +181,18 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig):
     kinds = cfg.layer_kinds()
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    units = [_unbind(sub) for sub in params["unit"]]    # [slot][unit]
 
-    def unit_body(h, *unit_p):
+    def unit_body(h, unit_p):
         for j in range(u):
             h = _apply_layer(cfg, kinds[j], unit_p[j], h, positions)
         return h
 
-    for i in range(n_units):
-        unit_p = tuple(units[j][i] for j in range(u))
+    def body(h, unit_p):
         if cfg.remat:
-            x = checkpoint(unit_body, x, *unit_p, use_reentrant=False)
-        else:
-            x = unit_body(x, *unit_p)
+            return checkpoint(unit_body, h, unit_p, use_reentrant=False)
+        return unit_body(h, unit_p)
+
+    x = scan_loop(n_units, body, x, xs=params["unit"])
     for j, p in enumerate(params["rest"]):
         x = _apply_layer(cfg, kinds[n_units * u + j], p, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -252,17 +247,18 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
     Returns (last-position logits (b, vocab), cache).  Attention caches hold
     the full (or window-tail, in ring order) K/V in ``cfg.dtype``; SSM
     caches hold the final state and the conv tail.  The cache has the
-    reference's stacked layout."""
+    reference's stacked layout: the unit scan's ys."""
     check_ported(cfg)
+    u = unit_len(cfg)
+    n_units = cfg.n_layers // u
+    kinds = cfg.layer_kinds()
     x = embed_inputs(params, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     dt = torch_dtype(cfg.dtype)
-    unit_caches: list[list] = [[] for _ in params["unit"]]
-    rest_caches = []
-    for kind, i, j, sub in _layers(cfg, params):
-        p = _index(sub, i)
-        hh = rms_norm(x, p["ln1"])
+
+    def prefill_layer(kind, p, h):
+        hh = rms_norm(h, p["ln1"])
         if kind == "m":
             mix, cache = S.ssm_apply(p["mixer"], hh, head_dim=cfg.ssm_head_dim,
                                      n_state=cfg.ssm_state,
@@ -282,20 +278,42 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
                 k = torch.roll(k[:, s - cl:], s % cl, dims=1)
                 v = torch.roll(v[:, s - cl:], s % cl, dims=1)
             cache = A.KVCache(k.to(dt), v.to(dt))
-        x = _ffn(cfg, p, x + mix)
-        (rest_caches if i is None else unit_caches[j]).append(cache)
+        return _ffn(cfg, p, h + mix), cache
+
+    def unit_body(h, unit_p):
+        caches = []
+        for j in range(u):
+            h, c = prefill_layer(kinds[j], unit_p[j], h)
+            caches.append(c)
+        return h, tuple(caches)
+
+    x, unit_cache = scan_loop(n_units, unit_body, x, xs=params["unit"],
+                              stack_ys=True)
+    rest_cache = []
+    for j, p in enumerate(params["rest"]):
+        x, c = prefill_layer(kinds[n_units * u + j], p, x)
+        rest_cache.append(c)
     x = rms_norm(x, params["final_norm"])
     logits = unembed(x[:, -1:], params["embed"])[:, 0]
-    return logits, {"unit": tuple(_stack_caches(c) for c in unit_caches),
-                    "rest": tuple(rest_caches)}
+    return logits, {"unit": unit_cache, "rest": tuple(rest_cache)}
 
 
-def _stack_caches(caches: list) -> Any:
-    first = caches[0]
-    if isinstance(first, A.KVCache):
-        return A.KVCache(torch.stack([c.k for c in caches]),
-                         torch.stack([c.v for c in caches]))
-    return {k: torch.stack([c[k] for c in caches]) for k in first}
+def _decode_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
+                  c: Any, pos: int):
+    h = rms_norm(x, p["ln1"])
+    if kind == "m":
+        mix, new = S.ssm_decode(p["mixer"], h, c, head_dim=cfg.ssm_head_dim,
+                                n_state=cfg.ssm_state,
+                                n_groups=cfg.ssm_groups,
+                                expand=cfg.ssm_expand)
+    else:
+        win = cfg.window if kind == "l" and cfg.window else None
+        mix, new = A.decode_attention(p["attn"], h, c, pos,
+                                      n_heads=cfg.n_heads,
+                                      n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                                      theta=cfg.rope_theta, window=win)
+    _write_back(c, new)
+    return _ffn(cfg, p, x + mix)
 
 
 def lm_decode_step(params: dict, cache: dict, batch: dict, pos: int,
@@ -305,25 +323,21 @@ def lm_decode_step(params: dict, cache: dict, batch: dict, pos: int,
     Returns (logits (b, vocab), cache); the cache's buffers are updated in
     place (the reference returns new ones)."""
     check_ported(cfg)
+    u = unit_len(cfg)
+    n_units = cfg.n_layers // u
+    kinds = cfg.layer_kinds()
     x = embed_inputs(params, batch, cfg)
-    for kind, i, j, sub in _layers(cfg, params):
-        p = _index(sub, i)
-        stacked = cache["unit"][j] if i is not None else cache["rest"][j]
-        c = _index(stacked, i)
-        h = rms_norm(x, p["ln1"])
-        if kind == "m":
-            mix, c = S.ssm_decode(p["mixer"], h, c, head_dim=cfg.ssm_head_dim,
-                                  n_state=cfg.ssm_state,
-                                  n_groups=cfg.ssm_groups,
-                                  expand=cfg.ssm_expand)
-        else:
-            win = cfg.window if kind == "l" and cfg.window else None
-            mix, c = A.decode_attention(p["attn"], h, c, pos,
-                                        n_heads=cfg.n_heads,
-                                        n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                                        theta=cfg.rope_theta, window=win)
-        _write_back(stacked, i, c)
-        x = _ffn(cfg, p, x + mix)
+
+    def unit_body(h, pc):
+        unit_p, unit_c = pc
+        for j in range(u):
+            h = _decode_layer(cfg, kinds[j], unit_p[j], h, unit_c[j], pos)
+        return h
+
+    x = scan_loop(n_units, unit_body, x, xs=(params["unit"], cache["unit"]))
+    for j, p in enumerate(params["rest"]):
+        x = _decode_layer(cfg, kinds[n_units * u + j], p, x,
+                          cache["rest"][j], pos)
     x = rms_norm(x, params["final_norm"])
     logits = unembed(x[:, 0:1], params["embed"])[:, 0]
     return logits, cache

@@ -48,6 +48,30 @@ def test_every_module_imports_without_jax_or_the_reference():
     assert int(proc.stdout.strip()) >= 20
 
 
+def test_the_tracer_front_end_runs_without_jax():
+    """synthesize(fn), the workloads and the scenario zoo trace, fit and
+    replay with JAX unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from repro_torch.configs.registry import build_scenario\n"
+        "from repro_torch.core.synthesize import synthesize\n"
+        "from repro_torch.workloads import PROGRAMS\n"
+        "fn, args, axes = PROGRAMS['dp_train'](n=2, layers=2)\n"
+        "res = synthesize(fn, *args, axis_sizes=axes, device='cpu')\n"
+        "res.proxy.run_all()\n"
+        "assert res.fidelity(sample_ranks=None).comm_lossless\n"
+        "st = build_scenario('ssm-decode', n_ranks=2, steps=1)\n"
+        "assert st.n_ranks == 2\n"
+        "bad = sorted(m for m in sys.modules if m == 'repro' or\n"
+        "             m.startswith(('repro.', 'jax')) and sys.modules[m])\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imports(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -126,8 +150,19 @@ def test_state_builders_default_to_cuda_and_raise_without_it(no_cuda,
 
 
 def test_synthesize_from_a_function_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="torch tracer"):
-        synthesize(lambda x: x, torch.zeros(2), device="cpu")
+    """``synthesize(fn, ...)`` traces ``fn`` on meta tensors; what is not
+    ported yet is a collective on real tensors (the mesh backend): it
+    raises, never passing its input through as if it had run."""
+    from repro_torch.sharding import collectives as C
+
+    def fn(x):
+        return C.psum(torch.tanh(x @ x), "x")
+
+    res = synthesize(fn, torch.zeros(8, 8), axis_sizes={"x": 4},
+                     device="cpu")
+    assert res.store.n_ranks == 4 and res.store.n_comm_events == 4
+    with pytest.raises(NotImplementedError, match="mesh"):
+        fn(torch.zeros(8, 8))
 
 
 def test_noise_replay_is_not_ported_yet(tmp_path):

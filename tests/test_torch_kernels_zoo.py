@@ -187,13 +187,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 
 def test_non_cpu_non_cuda_tensors_raise():
-    """No fallback: only CPU tensors take the plain version."""
+    """No fallback: only CPU tensors take the plain version, and only meta
+    tensors (all of them: the cost walker's) its costed form; meta inputs
+    mixed with CPU ones raise."""
     q = torch.empty(1, 64, 2, 16, device="meta")
+    k = torch.empty(1, 64, 1, 16)
     with pytest.raises(ValueError):
-        fops.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1])
+        fops.flash_attention_fwd(q, k, k)
     x = torch.empty(1, 1, 8, 2, 16, device="meta")
     dt = torch.empty(1, 1, 8, 2, device="meta")
-    bm = torch.empty(1, 1, 8, 1, 16, device="meta")
+    bm = torch.empty(1, 1, 8, 1, 16)
     with pytest.raises(ValueError):
         sops.ssd_diag_block(x, dt, dt, bm, bm, 2)
 

@@ -33,7 +33,24 @@ paths on the card, checking that each went through its kernels:
   the card, with comm lossless, the proxy-block launches the fit and the
   grammar predict, and the TraceStore and delta_bar of the same run on the
   CPU; then the walker's costs of the full Llama 3.2 3B and Mamba2 2.7B
-  prefill, decode and train steps (batch 4 x 2048), which launch nothing.
+  prefill, decode and train steps (batch 4 x 2048), which launch nothing;
+- slice 8: the MoE family and the encoder-decoder.  ``flash_fwd`` at
+  DeepSeek-MoE 16B's shape (MHA, 16 heads of 128, causal) and at Whisper
+  large-v3's encoder shape (20 heads of 64, 1500 frames, unmasked) and
+  ``flash_bwd`` at the latter, against their plain versions;
+  ``ServeEngine.generate`` on DeepSeek-MoE 16B (batch 4, 2048-token
+  prompts, 32 new tokens, capacity factor 1.25; 28 ``flash_fwd``) with the
+  share of dropped and emptied expert picks, and on Whisper large-v3
+  (batch 4, the reference engine's zero frames, 416-token prompts, 32 new
+  tokens: 448 positions; 32 ``flash_fwd``, the encoder's), each with its
+  prefill/decode consistency (DeepSeek's at capacity factor
+  n_experts / top_k, where nothing drops; its f32 check at a cut depth);
+  ``Trainer.run`` on Whisper large-v3 at full width (batch 4 x 448 tokens,
+  1500 random frames) and on DeepSeek-MoE 16B at full width and a cut
+  depth (``DEEPSEEK_TRAIN_LAYERS``); the MoE and encoder-decoder smoke
+  configs on the card against the CPU (serve, one training step,
+  crash/resume); the ``moe-ep`` and ``encdec-pipeline`` scenarios in the
+  trace phase, and the walker's DeepSeek and Whisper prefill and decode.
 
 Then it times every kernel against its plain version, its bound and, where
 one PyTorch call computes the same function, that call; for the two
@@ -54,6 +71,7 @@ each checkout's ``backward.cu``, at the main shape, in that order
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -88,7 +106,6 @@ MXU_PIECE = 64
 STATE_ATOL = 1e-4  # f32 leaves, CUDA vs CPU: see check_states
 
 SERVE_BATCH = 4
-SERVE_PROMPT = 2048
 SERVE_NEW = 32
 #: consistency: the last position's logits from a 2048-token prefill
 #: against a 1792-token prefill then 256 teacher-forced decode steps, as a
@@ -111,14 +128,38 @@ SERVE_NEW = 32
 #: layer alone (the CPU at full width, 3 layers: 0.021 of max|output|;
 #: at 64 layers of d 128: 0.037), where a stale conv tail or a lost state
 #: gives O(1).
+#: DeepSeek-MoE is held at capacity factor n_experts / top_k, where cap =
+#: tokens and nothing drops at any step (at 1.25 a decode step has cap 1,
+#: and the reference's own prefill-then-decode differs from its prefill by
+#: O(1)).  Its bf16 drift: the reference's DeepSeek-MoE routing at d 128
+#: and 28 layers drifts 0.135 of max|logits| (tests/test_torch_serve.py::
+#: test_bf16_drift_is_the_reference_models[deepseek-moe-16b-28]; the port
+#: 0.015): routing flips on near-ties between the two paths amplify like
+#: depth does.  Whisper's 32 decoder layers: the reference drifts 0.014 at
+#: d 128, so Llama's 0.05 holds it.
 CONSISTENCY_F32_RTOL = 1e-3
 REFERENCE_MAMBA2_BF16_DRIFT = 0.442
+REFERENCE_MOE_BF16_DRIFT = 0.135
 CONSISTENCY_BF16_RTOL = {"llama3.2-3b": 0.05,
-                         "mamba2-2.7b": 2 * REFERENCE_MAMBA2_BF16_DRIFT}
+                         "mamba2-2.7b": 2 * REFERENCE_MAMBA2_BF16_DRIFT,
+                         "deepseek-moe-16b": 2 * REFERENCE_MOE_BF16_DRIFT,
+                         "whisper-large-v3": 0.05}
+#: serve cells: prompt length (Whisper's 416 + 32 new tokens are its
+#: published 448 decoder positions); each launches its kernel once an
+#: attention (or SSD) layer of the prefill: the encoder's, for Whisper
+SERVE_CELLS = {"llama3.2-3b": (2048, "flash_fwd"),
+               "mamba2-2.7b": (2048, "ssd_diag"),
+               "deepseek-moe-16b": (2048, "flash_fwd"),
+               "whisper-large-v3": (416, "flash_fwd")}
+#: DeepSeek-MoE's f32 weights (62 GiB) beside its bf16 ones do not fit the
+#: card: the f32 consistency check runs its first 8 layers
+DEEPSEEK_F32_LAYERS = 8
 SSM_LAYER_BF16_RTOL = 2.0 ** -4
 #: calls a case of --launch-cost: 20 processes of it fit in a quarter hour
 LAUNCH_COST_CALLS = 2000
-SMOKE_PROMPTS = {"llama3.2-3b": 1024, "mamba2-2.7b": 256, "gemma3-4b": 1024}
+SMOKE_PROMPTS = {"llama3.2-3b": 1024, "mamba2-2.7b": 256, "gemma3-4b": 1024,
+                 "deepseek-moe-16b": 1024, "mixtral-8x22b": 1024,
+                 "jamba-v0.1-52b": 256, "whisper-large-v3": 1024}
 
 
 def fail(msg: str) -> None:
@@ -504,17 +545,22 @@ def phase_per_rank_seeds(res) -> None:
           f"{1e3 * (t2 - t1):.1f} ms, max |diff| = {worst:.3g}")
 
 
-TRACE_SCENARIOS = ("transformer-dp", "flash-ring", "ssm-decode")
+TRACE_SCENARIOS = ("transformer-dp", "flash-ring", "ssm-decode", "moe-ep",
+                   "encdec-pipeline")
 #: full-width model costs the trace phase walks: batch 4 x 2048 tokens,
-#: decode against a cache of 8192
-TRACE_COST_ARCHS = ("llama3.2-3b", "mamba2-2.7b")
-TRACE_COST_KINDS = ("prefill", "decode", "train")
+#: decode against a cache of 8192 (the reference cannot walk a full-width
+#: train step, and the scenarios walk only DeepSeek's and Whisper's smoke
+#: train steps, so those two are walked for prefill and decode)
+TRACE_COSTS = (("llama3.2-3b", ("prefill", "decode", "train")),
+               ("mamba2-2.7b", ("prefill", "decode", "train")),
+               ("deepseek-moe-16b", ("prefill", "decode")),
+               ("whisper-large-v3", ("prefill", "decode")))
 TRACE_DELTA_ATOL = 1e-12
 
 
 def trace_targets() -> list:
     """(name, synthesize(...) of it with the caller's keywords) of the
-    paper's three programs at their default sizes and the three ported zoo
+    paper's three programs at their default sizes and the five zoo
     scenarios at their defaults."""
     from repro_torch.configs.registry import build_scenario
     from repro_torch.core.synthesize import synthesize
@@ -557,7 +603,7 @@ def phase_trace(dev) -> dict:
     scenario is traced (on meta tensors), synthesized with the fit and the
     replay on the card, replayed and scored; the same on the CPU must give
     the same TraceStore and the same delta_bar.  Then the walker's costs of
-    the full Llama 3.2 3B and Mamba2 2.7B steps, which launch nothing."""
+    the full models' steps (TRACE_COSTS), which launch nothing."""
     from repro_torch.configs import get
     from repro_torch.configs.registry import _model_costs
     out_dir = ROOT / "build" / "chip_smoke_trace"
@@ -597,9 +643,9 @@ def phase_trace(dev) -> dict:
                  f"{fid_cpu.mean!r}")
         rows[name] = row
     costs = {}
-    for arch in TRACE_COST_ARCHS:
+    for arch, kinds in TRACE_COSTS:
         cfg = get(arch)
-        for kind in TRACE_COST_KINDS:
+        for kind in kinds:
             reset_counts()
             t0 = time.perf_counter()
             vec = _model_costs(cfg, (kind,), b=4, s=2048)[kind]
@@ -669,6 +715,12 @@ def check_close(name: str, got, want, what: str) -> float:
 #: prompt (8 chunks of 256, 80 heads of 64, one group, state 128)
 FLASH_MAIN = dict(b=4, s=2048, h=24, g=8, d=128)
 SSD_MAIN = dict(b=4, c=8, q=256, g=1, r=80, p=64, n=128)
+#: slice 8's flash shapes (bf16): DeepSeek-MoE 16B's prefill (MHA, causal)
+#: and Whisper large-v3's encoder over its 1500 frames (unmasked; the
+#: forward in serve and train, the backward in train); (b, s, h, g, d,
+#: causal) by cell
+FLASH_SHAPES = {"deepseek-moe-16b": (4, 2048, 16, 16, 128, True),
+                "whisper-large-v3": (4, 1500, 20, 20, 64, False)}
 
 
 def phase_zoo_kernels(dev) -> dict:
@@ -689,9 +741,12 @@ def phase_zoo_kernels(dev) -> dict:
         (2, 300, 4, 2, 32, None, True), (1, 200, 2, 2, 32, 64, True),
         (fl["b"], fl["s"], fl["h"], fl["g"], fl["d"], None, True),
         (fl["b"], fl["s"], fl["h"], fl["g"], fl["d"], 512, True)]
+    shapes = {v[:5]: k for k, v in FLASH_SHAPES.items()}
+    flash_cases += [v[:5] + (None, v[5]) for v in FLASH_SHAPES.values()]
     for b, s, h, g, d, win, causal in flash_cases:
         main = (b, s, h, g, d) == tuple(fl.values())
-        for dtype in ((torch.bfloat16,) if main else
+        cell = shapes.get((b, s, h, g, d))
+        for dtype in ((torch.bfloat16,) if main or cell else
                       (torch.float32, torch.bfloat16)):
             q, k, v = flash_inputs(gen, b, s, h, g, d, dtype, dev)
             got = fops.flash_attention_fwd(q, k, v, causal=causal, window=win)
@@ -701,6 +756,8 @@ def phase_zoo_kernels(dev) -> dict:
                               f"causal={causal} {str(dtype)[6:]}")
             if main and win is None:
                 errs["flash_fwd"] = err
+            if cell:
+                errs[f"flash_fwd {cell}"] = err
             del q, k, v, got, want
     sm = SSD_MAIN
     ssd_cases = [(1, 2, 32, 1, 4, 16, 16), (2, 2, 16, 2, 8, 8, 32),
@@ -748,6 +805,62 @@ def serve_prompts(cfg, b: int, s: int, seed: int = 0):
         np.int32)
 
 
+def model_batch(cfg, tokens, dev, seed: int = 0) -> dict:
+    """{tokens} and, for an encoder-decoder, random N(0, 1) audio frames
+    (b, n_audio_frames, d) in the config's dtype, from ``seed``: the
+    checks that call the prefill directly feed the encoder something that
+    is not zero (the serve engine feeds the reference's zero frames)."""
+    out = {"tokens": tokens}
+    if cfg.n_audio_frames:
+        gen = torch.Generator(device=dev).manual_seed(100 + seed)
+        out["audio_frames"] = torch.randn(
+            (tokens.shape[0], cfg.n_audio_frames, cfg.d_model),
+            generator=gen, device=dev).to(getattr(torch, cfg.dtype))
+    return out
+
+
+def cut_depth(cfg, params, n_layers: int):
+    """The config and weights of the first ``n_layers`` layers (views)."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_map
+
+    u = T.unit_len(cfg)
+    if cfg.family == "encdec" or n_layers % u:
+        fail(f"{cfg.name}: no cut at {n_layers} layers")
+    out = dict(params, rest=())
+    out["unit"] = tree_map(lambda t: t[:n_layers // u], params["unit"])
+    return dataclasses.replace(cfg, n_layers=n_layers), out
+
+
+@contextlib.contextmanager
+def moe_routes(records: list):
+    """Record, for each ``moe_apply`` call, its (dropped picks, picks in
+    an emptied slot, all picks) as device tensors (no host sync)."""
+    from repro_torch.models import moe as M
+
+    route = M.route
+
+    def spy(*args, **kwargs):
+        r = route(*args, **kwargs)
+        records.append(((~r["inv_ok"]).sum(), r["emptied"].sum(),
+                        r["inv_ok"].numel()))
+        return r
+
+    M.route = spy
+    try:
+        yield
+    finally:
+        M.route = route
+
+
+def drop_shares(records: list) -> dict:
+    """(dropped, emptied) as shares of the picks of a list of records."""
+    n = sum(r[2] for r in records)
+    return {"dropped": sum(int(r[0]) for r in records) / n,
+            "emptied": sum(int(r[1]) for r in records) / n}
+
+
 def check_consistency(cfg, params, prompts, dev, split: int,
                       rtol: float, profile: bool = False) -> float:
     """Last-position logits of a full prefill against a prefill of the first
@@ -762,8 +875,9 @@ def check_consistency(cfg, params, prompts, dev, split: int,
     prefill = build_forward(cfg, "prefill")
     decode = build_forward(cfg, "decode")
     with torch.inference_mode():
-        full, _ = prefill(params, {"tokens": toks}, cfg)
-        logits, pre = prefill(params, {"tokens": toks[:, :split]}, cfg)
+        full, _ = prefill(params, model_batch(cfg, toks, dev), cfg)
+        logits, pre = prefill(params, model_batch(cfg, toks[:, :split], dev),
+                              cfg)
         cache = tree_map(ServeEngine._embed_cache,
                          init_cache(cfg, b, s, dev), pre)
         del pre
@@ -776,7 +890,7 @@ def check_consistency(cfg, params, prompts, dev, split: int,
                 logits, cache = decode(*args)
         other = torch.as_tensor(serve_prompts(cfg, b, s, seed=1),
                                 dtype=torch.int32, device=dev)
-        unrelated, _ = prefill(params, {"tokens": other}, cfg)
+        unrelated, _ = prefill(params, model_batch(cfg, other, dev, 1), cfg)
     torch.cuda.synchronize()
     del cache
     err = float((logits.float() - full.float()).abs().max())
@@ -836,7 +950,7 @@ def check_ssm_layers(cfg, params, prompts, dev, split: int,
                 fail(f"{cfg.name} layer {n}: decode output not finite")
             if err > worst:
                 worst, where = err, n
-            x = T._ffn(cfg, p, x + full)
+            x = T._ffn(cfg, n, p, x + full)[0]
     print(f"serve {cfg.name} {cfg.dtype} per-layer consistency: prefill {s} "
           f"vs prefill {split} + {s - split} decode steps, each of "
           f"{cfg.n_layers} layers on the prefill's own input: worst "
@@ -847,32 +961,39 @@ def check_ssm_layers(cfg, params, prompts, dev, split: int,
     return worst
 
 
-def phase_serve(dev, arch: str, kernel: str, per_layer: int) -> dict:
+def phase_serve(dev, arch: str) -> dict:
     """ServeEngine.generate at full width and depth, bf16, random weights
-    from seed 0: batch 4, 2048-token prompts, 32 new tokens."""
+    from seed 0: batch 4, SERVE_CELLS' prompt, 32 new tokens."""
     import dataclasses
     from repro_torch.configs import get
+    from repro_torch.models import moe as M
     from repro_torch.models.layers import tree_map
     from repro_torch.models.model import init_params
     from repro_torch.serve.engine import ServeEngine
 
     cfg = get(arch)
+    plen, kernel = SERVE_CELLS[arch]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = init_params(cfg, 0, dev)
     torch.cuda.synchronize()
+    # init draws each leaf in f32 first: its peak is the weights plus the
+    # largest leaf in f32; serving's is read apart
+    init_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats(dev)
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"serve {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{n_params / 1e9:.3f}B parameters ({cfg.dtype}), init "
-          f"{time.perf_counter() - t0:.2f} s")
-    prompts = serve_prompts(cfg, SERVE_BATCH, SERVE_PROMPT)
-    engine = ServeEngine(cfg, params, device=dev,
-                         max_len=SERVE_PROMPT + SERVE_NEW)
+    print(f"serve {arch}: {cfg.n_layers} layers"
+          f"{f' (+ {cfg.enc_layers} encoder)' if cfg.enc_layers else ''}, "
+          f"d {cfg.d_model}, {n_params / 1e9:.3f}B parameters ({cfg.dtype}), "
+          f"init {time.perf_counter() - t0:.2f} s")
+    prompts = serve_prompts(cfg, SERVE_BATCH, plen)
+    engine = ServeEngine(cfg, params, device=dev, max_len=plen + SERVE_NEW)
     reset_counts()
     res = engine.generate(prompts, SERVE_NEW)
     launches = read_counts()
     print(f"serve {arch} launches: {json.dumps(launches)}")
-    want = per_layer * cfg.n_layers
+    want = cfg.enc_layers or cfg.n_layers
     if launches[kernel] != want:
         fail(f"{arch}: {kernel} launched {launches[kernel]} times per "
              f"generate, expected {want} (one per layer)")
@@ -890,28 +1011,58 @@ def phase_serve(dev, arch: str, kernel: str, per_layer: int) -> dict:
            "decode_ms": 1e3 * warm.decode_sec,
            "tokens_per_sec": warm.tokens_per_sec,
            "cold_prefill_ms": 1e3 * res.prefill_sec,
-           "max_memory_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+           "serve_peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    row["max_memory_gib"] = max(init_peak, row["serve_peak_gib"])
     print(f"serve {arch}: prefill {row['prefill_ms']:.2f} ms (cold "
           f"{row['cold_prefill_ms']:.2f}), decode {row['decode_ms']:.2f} ms "
           f"for {SERVE_NEW - 1} steps, {row['tokens_per_sec']:.1f} tokens/s, "
-          f"max memory {row['max_memory_gib']:.2f} GiB")
+          f"max memory {row['max_memory_gib']:.2f} GiB (serving "
+          f"{row['serve_peak_gib']:.2f}, init {init_peak:.2f})")
     print(f"serve {arch} tokens[0][:8]: {res.tokens[0][:8].tolist()}")
+    if cfg.n_experts:
+        # a prefill and one decode step, at the published capacity factor
+        records: list = []
+        with moe_routes(records):
+            again = engine.generate(prompts, 2)
+        if not (again.tokens == res.tokens[:, :2]).all():
+            fail(f"{arch}: generate under the route recorder differs")
+        n = cfg.n_layers
+        row["picks_prefill"] = drop_shares(records[:n])
+        row["picks_decode_step"] = drop_shares(records[n:2 * n])
+        caps = [M.capacity(SERVE_BATCH * t, cfg.top_k, cfg.n_experts,
+                         cfg.capacity_factor) for t in (plen, 1)]
+        print(f"serve {arch} expert picks at capacity factor "
+              f"{cfg.capacity_factor} (shares of all picks): prefill (cap "
+              f"{caps[0]}) {json.dumps(row['picks_prefill'])}, a decode step "
+              f"(cap {caps[1]}) {json.dumps(row['picks_decode_step'])}")
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     with torch.inference_mode():
-        profile_call(lambda: engine._prefill(params, {"tokens": toks}, cfg),
+        batch = {"tokens": toks, **engine._extras(SERVE_BATCH)}
+        profile_call(lambda: engine._prefill(params, batch, cfg),
                      f"{arch} prefill")
-    split = SERVE_PROMPT - 256
+        del batch
+    split = plen - 256
+    ccfg = cfg
+    if cfg.n_experts:
+        # cap = tokens: nothing drops in the prefill or in any decode step
+        ccfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                   / cfg.top_k)
     row["consistency_bf16"] = check_consistency(
-        cfg, params, prompts, dev, split, CONSISTENCY_BF16_RTOL[arch],
+        ccfg, params, prompts, dev, split, CONSISTENCY_BF16_RTOL[arch],
         profile=True)
     if cfg.family == "ssm":
         row["layers_bf16"] = check_ssm_layers(cfg, params, prompts, dev, split,
                                               SSM_LAYER_BF16_RTOL)
     del engine
+    if cfg.n_experts:
+        ccfg, params = cut_depth(ccfg, params, DEEPSEEK_F32_LAYERS)
+        print(f"serve {arch} f32 consistency at {ccfg.n_layers} of "
+              f"{cfg.n_layers} layers (the f32 weights of all do not fit "
+              "beside the bf16 ones)")
     params = tree_map(lambda t: t.float(), params)   # the same weights in f32
     torch.cuda.empty_cache()
     row["consistency_f32"] = check_consistency(
-        dataclasses.replace(cfg, dtype="float32"), params, prompts, dev,
+        dataclasses.replace(ccfg, dtype="float32"), params, prompts, dev,
         split, CONSISTENCY_F32_RTOL)
     del params
     torch.cuda.empty_cache()
@@ -967,8 +1118,9 @@ def profile_call(fn, label: str, stats: dict | None = None):
 
 
 def phase_smoke_configs(dev) -> None:
-    """The CPU tests' three smoke configs (f32), same weights and prompts,
-    on the card against the CPU: equal tokens, prefill logits close."""
+    """The CPU tests' smoke configs (f32), same weights and prompts, on the
+    card against the CPU: equal tokens, prefill logits close (Whisper's on
+    random frames; its generate feeds zero frames)."""
     import dataclasses
     from repro_torch.configs import get, smoke
     from repro_torch.models.layers import tree_map
@@ -986,11 +1138,11 @@ def phase_smoke_configs(dev) -> None:
         launches = read_counts()
         want = ServeEngine(cfg, cpu, device="cpu", max_len=plen + 8).generate(
             prompts, 8)
-        toks = torch.as_tensor(prompts)
+        batch = model_batch(cfg, torch.as_tensor(prompts, device=dev), dev)
         with torch.inference_mode():
-            lg, _ = build_forward(cfg, "prefill")(gpu, {"tokens": toks.to(dev)},
-                                                  cfg)
-            lc, _ = build_forward(cfg, "prefill")(cpu, {"tokens": toks}, cfg)
+            lg, _ = build_forward(cfg, "prefill")(gpu, batch, cfg)
+            lc, _ = build_forward(cfg, "prefill")(
+                cpu, {k: v.cpu() for k, v in batch.items()}, cfg)
         diff = float((lg.cpu() - lc).abs().max())
         print(f"smoke {arch} (prompt {plen}) cuda vs cpu: tokens equal "
               f"{bool((got.tokens == want.tokens).all())}, prefill logits "
@@ -1249,11 +1401,30 @@ def phase_timings(dev, launches: dict, errs: dict) -> list[dict]:
 
 #: slice 5: full-size training at batch 4 x 2048 tokens, 3 steps a model
 TRAIN_BATCH = 4
-TRAIN_SEQ = 2048
 TRAIN_STEPS = 3
-#: launches a training step (forward and remat recompute: 2 per layer)
-TRAIN_LAUNCHES = {"llama3.2-3b": {"flash_fwd": 56, "flash_bwd": 28},
-                  "mamba2-2.7b": {"ssd_diag": 128}}
+#: DeepSeek-MoE 16B trains at full width and this cut depth: its 28
+#: layers' weights, gradients and AdamW moments (12 bytes a parameter,
+#: 16.7 B parameters) do not fit one card.  On an H100 80GB (79.18 GiB)
+#: 8 layers (4.9 B) peaked at 57.75 GiB, and each layer adds 0.588 B
+#: parameters (6.6 GiB); at 10 layers the backward could not place a 3.44
+#: GiB gradient of the stacked experts.  9 leave about 15 GiB spare
+DEEPSEEK_TRAIN_LAYERS = 9
+#: train cells: tokens a sequence, and the depth (None: the published one);
+#: Whisper's decoder at its 448 positions, its encoder at the 1500 frames
+TRAIN_CELLS = {"llama3.2-3b": (2048, None), "mamba2-2.7b": (2048, None),
+               "whisper-large-v3": (448, None),
+               "deepseek-moe-16b": (2048, DEEPSEEK_TRAIN_LAYERS)}
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches a training step: the forward and remat's recompute
+    launch the forward kernel twice a layer, the backward once.  Every
+    attention layer of these cells takes flash but Whisper's decoder's
+    (448 positions, below FLASH_MIN_SEQ)."""
+    if cfg.family == "ssm":
+        return {"ssd_diag": 2 * cfg.n_layers}
+    n = cfg.enc_layers or cfg.n_layers
+    return {"flash_fwd": 2 * n, "flash_bwd": n}
 #: smoke configs' training step, card against CPU (f32): the loss and the
 #: gradient norm within 1e-5 relative and each gradient leaf within 1e-4 of
 #: its largest value (tests/test_torch_train.py's limits against the JAX
@@ -1267,11 +1438,11 @@ TRAIN_GRAD_RTOL = 1e-4
 LSE_RTOL = 1e-4
 
 
-def check_train_kernels(dev) -> tuple[float, float]:
+def check_train_kernels(dev) -> tuple[dict, float]:
     """flash_bwd, the LSE output and the SSD gradient at the training
     path's shapes, against their plain versions.  Returns flash_bwd's
-    max|kernel - plain| at the main shape and the plain SSD backward's ms
-    a Mamba2 layer."""
+    max|kernel - plain| at the main shape and at Whisper's (by name), and
+    the plain SSD backward's ms a Mamba2 layer."""
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.ssd import ops as sops, ref as sref
 
@@ -1284,6 +1455,10 @@ def check_train_kernels(dev) -> tuple[float, float]:
              (1, 300, 6, 2, 64, None, True, torch.float32),
              (2, 1024, 4, 2, 16, 16, True, torch.float32),
              (1, 384, 4, 2, 64, None, False, torch.float32)]
+    # Whisper large-v3's encoder: 1500 frames, unmasked, d 64
+    wh = FLASH_SHAPES["whisper-large-v3"]
+    cases.append(wh[:5] + (None, wh[5], torch.bfloat16))
+    errs = {}
     for b, s, h, g, d, win, causal, dtype in cases:
         q, k, v = flash_inputs(gen, b, s, h, g, d, dtype, dev)
         dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
@@ -1313,7 +1488,9 @@ def check_train_kernels(dev) -> tuple[float, float]:
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
             fail(f"flash_bwd {what}: two calls differ (not deterministic)")
         if (b, s, h, g, d, win) == tuple(fl.values()) + (None,):
-            main_err = err
+            errs["flash_bwd"] = err
+        if (b, s, h, g, d, causal) == wh:
+            errs["flash_bwd whisper-large-v3"] = err
         del q, k, v, dout, out, lse, got, plain, again
     print("kernel flash_bwd: two calls bit-identical on every case")
     sm = SSD_MAIN
@@ -1353,26 +1530,42 @@ def check_train_kernels(dev) -> tuple[float, float]:
           f"{ssd_ms:.3f} ms a layer")
     del ins, gy
     torch.cuda.empty_cache()
-    return main_err, ssd_ms
+    return errs, ssd_ms
 
 
-def model_flops(cfg, n_params: int, tokens: int) -> float:
+def model_flops(cfg, n_params: int, seq: int) -> float:
     """6 N T for the matmuls of a training step (the tied LM head counted
-    once, in N) plus attention's causal score and value products: three
-    times the forward's 4 b h d s(s+1)/2 a layer (forward, and twice that
-    in the backward); remat's recompute is not counted."""
+    once, in N; an MoE's N its active parameters, the top-k and shared
+    experts; an encoder-decoder's encoder weights over its frames, the
+    rest over the tokens) plus attention's score and value products: three
+    times the forward's 4 b h d a layer for each query-key pair it
+    computes (causal: s(s+1)/2; the encoder's F^2, cross-attention's s F);
+    remat's recompute and MoE capacity padding are not counted."""
+    b, hd4 = TRAIN_BATCH, 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd
+    tokens = b * seq
+    pairs = seq * (seq + 1) / 2
+    if cfg.family == "encdec":
+        d, f = cfg.d_model, cfg.n_audio_frames
+        enc = cfg.enc_layers * (2 * d * cfg.hd * (cfg.n_heads
+                                                  + cfg.n_kv_heads)
+                                + 3 * d * cfg.d_ff)
+        flops = 6.0 * (enc * b * f + (n_params - enc) * tokens)
+        return flops + 3 * hd4 * (cfg.enc_layers * f * f
+                                  + cfg.n_layers * (pairs + seq * f))
+    if cfg.n_experts:
+        n_params -= sum((cfg.n_experts - cfg.top_k) * 3 * cfg.d_model
+                        * cfg.d_ff_expert for i in range(cfg.n_layers)
+                        if cfg.is_moe_layer(i))
     flops = 6.0 * n_params * tokens
     n_attn = sum(k in ("g", "l") for k in cfg.layer_kinds())
-    if n_attn:
-        pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) / 2
-        flops += n_attn * 3 * 4 * TRAIN_BATCH * cfg.n_heads * cfg.hd * pairs
-    return flops
+    return flops + n_attn * 3 * hd4 * pairs
 
 
 def train_full(dev, arch: str) -> dict:
-    """Trainer.run at full width and depth: 3 steps, then 3 steps of
-    make_train_step on one fixed batch that must lower its loss each
-    step."""
+    """Trainer.run at full width and TRAIN_CELLS' depth: 3 steps, then 3
+    steps of make_train_step on one fixed batch that must lower its loss
+    each step."""
+    import dataclasses
     from repro_torch.configs import get
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.models.model import build_forward
@@ -1383,16 +1576,22 @@ def train_full(dev, arch: str) -> dict:
     )
 
     cfg = get(arch)
+    seq, depth = TRAIN_CELLS[arch]
+    if depth is not None:
+        print(f"train {arch}: cut to {depth} of {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+    trainer = Trainer(cfg, global_batch=TRAIN_BATCH, seq_len=seq,
                       ckpt_dir=ROOT / "build" / "chip_smoke" / f"ckpt_{arch}",
                       seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(trainer.params))
+    card = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
     print(f"train {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{n_params / 1e9:.3f}B parameters ({cfg.dtype}), remat "
+          f"{n_params / 1e9:.3f}B parameters ({cfg.dtype}), card "
+          f"{card:.2f} GiB, remat "
           f"{cfg.remat}, loss_chunk {cfg.loss_chunk}, init "
           f"{time.perf_counter() - t0:.2f} s")
     reset_counts()
@@ -1410,23 +1609,24 @@ def train_full(dev, arch: str) -> dict:
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items() if n}
     print(f"train {arch} launches in {TRAIN_STEPS} steps: "
           f"{json.dumps(launches)}; per step {json.dumps(per_step)}")
-    for kernel, want in TRAIN_LAUNCHES[arch].items():
+    expected = train_launches(cfg)
+    for kernel, want in expected.items():
         if launches[kernel] != want * TRAIN_STEPS:
             fail(f"train {arch}: {kernel} launched {launches[kernel]} times "
                  f"in {TRAIN_STEPS} steps, expected {want} a step")
-    others = {k: n for k, n in launches.items()
-              if k not in TRAIN_LAUNCHES[arch] and n}
+    others = {k: n for k, n in launches.items() if k not in expected and n}
     if others:
         fail(f"train {arch}: unexpected launches {others}")
     step_s = log[1]["sec"]           # the second step: warm, not profiled
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = model_flops(cfg, n_params, tokens)
-    row = {"losses": losses, "step_ms": 1e3 * step_s,
+    tokens = TRAIN_BATCH * seq
+    flops = model_flops(cfg, n_params, seq)
+    row = {"layers": cfg.n_layers, "seq": seq, "losses": losses,
+           "step_ms": 1e3 * step_s,
            "first_step_ms": 1e3 * log[0]["sec"],
            "tokens_per_sec": tokens / step_s, "model_flops": flops,
            "model_tflops": flops / step_s / 1e12,
            "share_of_989": flops / step_s / PEAK_BF16_FLOPS,
-           "peak_gib_warm_step": peak,
+           "peak_gib_warm_step": peak, "card_gib": card,
            "busy_share_warm_step": prof.get("busy_share"),
            "launches": launches, "launches_per_step": per_step}
     print(f"train {arch}: losses {losses}; step {row['step_ms']:.1f} ms "
@@ -1442,7 +1642,8 @@ def train_full(dev, arch: str) -> dict:
     opt = adamw_init(params)
     step = make_train_step(cfg, opt_cfg=AdamWConfig(warmup_steps=1),
                            device=dev)
-    batch = TokenDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=1).batch_at(0)
+    ds = TokenDataset(cfg.vocab, seq, TRAIN_BATCH, seed=1)
+    batch = {**ds.batch_at(0), **ds.extras(cfg)}
     fixed = []
     for _ in range(3):
         params, opt, m = step(params, opt, batch)
@@ -1503,7 +1704,8 @@ def train_smoke_configs(dev) -> None:
     ocfg = AdamWConfig(lr=1e-2, warmup_steps=1)
     for arch, seq in SMOKE_PROMPTS.items():
         cfg = smoke(get(arch))
-        batch = TokenDataset(cfg.vocab, seq, 2, seed=3).batch_at(0)
+        ds = TokenDataset(cfg.vocab, seq, 2, seed=3)
+        batch = {**ds.batch_at(0), **ds.extras(cfg)}
         cpu = init_params(cfg, 0, "cpu")
         gpu = tree_map(lambda t: t.to(dev, copy=True), cpu)
         loss_fn = build_forward(cfg, "loss")
@@ -1540,14 +1742,17 @@ def train_smoke_configs(dev) -> None:
               f"{lerr:.3g}, worst gradient leaf {worst:.3g} of its largest, "
               f"updated weights within {werr:.3g} lr; launches "
               f"{json.dumps(launches)}")
-        want = {"ssd_diag"} if cfg.family == "ssm" else {"flash_fwd",
-                                                         "flash_bwd"}
-        if any(launches[k] <= 0 for k in want):
+        kinds = set(cfg.layer_kinds())
+        want = {"ssd_diag"} if "m" in kinds else set()
+        if seq >= 1024 and kinds & {"g", "l"}:
+            want |= {"flash_fwd", "flash_bwd"}
+        if not want or any(launches[k] <= 0 for k in want):
             fail(f"train smoke {arch}: {want} not all launched: {launches}")
 
 
-def train_crash_resume(dev) -> None:
-    """The smoke Llama at 1024 tokens (the flash kernels): Trainer.run(6,
+def train_crash_resume(dev, arch: str) -> None:
+    """A smoke config at 1024 tokens (the flash kernels; the MoE routing
+    and dispatch; the encoder-decoder's frames): Trainer.run(6,
     ckpt_every=2) with a failure injected at step 4 equals the
     uninterrupted run bit for bit (losses, weights, moments)."""
     import shutil
@@ -1555,7 +1760,7 @@ def train_crash_resume(dev) -> None:
     from repro_torch.models.layers import tree_leaves
     from repro_torch.train.loop import Trainer, _InjectedFailure
 
-    cfg = smoke(get("llama3.2-3b"))
+    cfg = smoke(get(arch))
     base = ROOT / "build" / "chip_smoke" / "crash_resume"
     shutil.rmtree(base, ignore_errors=True)
     kw = dict(global_batch=2, seq_len=1024, device=dev)
@@ -1579,12 +1784,12 @@ def train_crash_resume(dev) -> None:
                 tree_leaves(t1.params), tree_leaves(t2.params)))
             and all(torch.equal(a, b) for a, b in zip(
                 tree_leaves(t1.opt_state), tree_leaves(t2.opt_state))))
-    print(f"train crash/resume (smoke llama, 1024 tokens, failure at step "
+    print(f"train crash/resume ({cfg.name}, 1024 tokens, failure at step "
           f"4): losses {l1}; bit-identical to the uninterrupted run: "
           f"{bool(same)}; launches {json.dumps(launches)}")
     if not same:
-        fail("crash/resume on the card does not reproduce the uninterrupted "
-             "run bit for bit")
+        fail(f"crash/resume of {cfg.name} on the card does not reproduce the "
+             "uninterrupted run bit for bit")
     shutil.rmtree(base, ignore_errors=True)
 
 
@@ -1715,18 +1920,94 @@ def phase_flash_bwd_versus(trees: list[Path]) -> None:
     print(json.dumps({"flash_bwd_versus": runs}))
 
 
+def phase_shape_timings(dev, errs: dict, serve: dict, train: dict) -> list:
+    """Slice 8's kernel shapes (FLASH_SHAPES): flash_fwd at DeepSeek-MoE's
+    prefill and Whisper's encoder, flash_bwd at Whisper's encoder; each
+    timed in turns with PyTorch's SDPA (its backward alone for flash_bwd)
+    on the same tensors, beside its plain version, its bound and its
+    launches a path run (a generate; a train step)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for cell, (b, s, h, g, d, causal) in FLASH_SHAPES.items():
+        q, k, v = flash_inputs(gen, b, s, h, g, d, torch.bfloat16, dev)
+        pairs = s * (s + 1) / 2 if causal else s * s
+        fwd_flops = 4 * b * h * d * pairs
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        kern = lambda: fops.flash_attention_fwd(q, k, v, causal=causal)  # noqa
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal)
+        with torch.no_grad():
+            turns = [cuda_ms(kern, 20), cuda_ms(lib, 20), cuda_ms(kern, 20)]
+        bnd, bby = bound(2 * (2 * b * s * h * d + 2 * b * s * g * d),
+                         fwd_flops, PEAK_BF16_FLOPS)
+        steps = train[cell]["launches_per_step"]
+        launch = {"generate": serve[cell]["launches"],
+                  "train_step": steps.get("flash_fwd", 0),
+                  "train_layers": train[cell]["layers"]}
+        rows.append({"name": "flash_fwd", "cell": cell,
+                     "shape": dict(b=b, s=s, h=h, g=g, d=d, causal=causal),
+                     "launches": launch, "max_abs_err":
+                     errs[f"flash_fwd {cell}"], "ms": (turns[0] + turns[2]) / 2,
+                     "plain_ms": cuda_ms(lambda: fref.attention_ref(
+                         q, k, v, causal=causal), 3),
+                     "bound_ms": bnd, "bound_by": bby, "library_ms": turns[1],
+                     "flops": fwd_flops})
+        if f"flash_bwd {cell}" in errs:
+            out, lse = fops.flash_attention_fwd(q, k, v, causal=causal,
+                                                return_lse=True)
+            dout = torch.randn(q.shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            dot = dout.transpose(1, 2).contiguous()
+            kern = lambda: fops.flash_attention_bwd(  # noqa: E731
+                q, k, v, out, lse, dout, causal=causal)
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                ot, (qt, kt, vt), dot, retain_graph=True)
+            turns = [cuda_ms(kern, 10), cuda_ms(lib, 10), cuda_ms(kern, 10)]
+            flops = 2.5 * fwd_flops              # five products
+            bnd, bby = bound(2 * (4 * b * s * h * d + 4 * b * s * g * d)
+                             + 4 * b * s * h, flops, PEAK_BF16_FLOPS)
+            rows.append({
+                "name": "flash_bwd", "cell": cell, "shape": rows[-1]["shape"],
+                "launches": {"train_step": steps.get("flash_bwd", 0),
+                             "train_layers": train[cell]["layers"]},
+                "max_abs_err": errs[f"flash_bwd {cell}"],
+                "ms": (turns[0] + turns[2]) / 2,
+                "plain_ms": cuda_ms(lambda: fref.attention_bwd_ref(
+                    q, k, v, out, lse, dout, causal=causal), 3),
+                "bound_ms": bnd, "bound_by": bby, "library_ms": turns[1],
+                "flops": flops})
+            del out, lse, dout, ot, dot
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    for r in rows:
+        print(f"timing {r['name']} at {r['cell']}'s shape "
+              f"{json.dumps(r['shape'])}: kernel {r['ms']:.4f} ms "
+              f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound), SDPA "
+              f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); launches "
+              f"{json.dumps(r['launches'])}")
+    return rows
+
+
 def phase_train(dev, errs: dict) -> tuple[dict, dict]:
     """Slice 5: the training path.  Returns (per-model rows, flash_bwd's
     timing row)."""
-    errs["flash_bwd"], ssd_ms = check_train_kernels(dev)
+    bwd_errs, ssd_ms = check_train_kernels(dev)
+    errs.update(bwd_errs)
     timing, kernel_us = flash_bwd_timing(dev)
     torch.cuda.empty_cache()
-    rows = {arch: train_full(dev, arch)
-            for arch in ("llama3.2-3b", "mamba2-2.7b")}
+    rows = {arch: train_full(dev, arch) for arch in TRAIN_CELLS}
     rows["mamba2-2.7b"]["ssd_backward_ms_a_layer"] = ssd_ms
     rows["llama3.2-3b"]["flash_bwd_device_us"] = kernel_us
     train_smoke_configs(dev)
-    train_crash_resume(dev)
+    for arch in ("llama3.2-3b", "deepseek-moe-16b", "whisper-large-v3"):
+        train_crash_resume(dev, arch)
     return rows, timing
 
 
@@ -1850,8 +2131,7 @@ def main() -> None:
     phase_profile(res)
     phase_per_rank_seeds(res)
     del res
-    serve = {"llama3.2-3b": phase_serve(dev, "llama3.2-3b", "flash_fwd", 1),
-             "mamba2-2.7b": phase_serve(dev, "mamba2-2.7b", "ssd_diag", 1)}
+    serve = {arch: phase_serve(dev, arch) for arch in SERVE_CELLS}
     launches["flash_fwd"] = serve["llama3.2-3b"]["launches"]
     launches["ssd_diag"] = serve["mamba2-2.7b"]["launches"]
     print(json.dumps({"serve": serve}))
@@ -1859,6 +2139,8 @@ def main() -> None:
     rows = phase_timings(dev, launches, errs)
     train, bwd = phase_train(dev, errs)
     print(json.dumps({"train": train}))
+    print(json.dumps({"shapes": phase_shape_timings(dev, errs, serve,
+                                                     train)}))
     t0 = time.perf_counter()
     trace = phase_trace(dev)
     trace["phase_s"] = time.perf_counter() - t0

@@ -8,9 +8,9 @@ over the family's smoke-config step functions on meta tensors:
 :func:`_model_costs`) with the family's canonical parallelism schedule
 recorded through :class:`~repro_torch.core.tracer.TraceSession`.  Builders
 return columnar :class:`~repro_torch.core.trace_ir.TraceStore` traces.
-The ``moe`` and ``encdec`` families wait for their models (ROADMAP items 2
-and 3), and ``ingest_scenarios`` for the corpus store (item 8).  The
-dry-run input specs wait for the sharding substrate (item 12).
+All five scenarios trace; ``ingest_scenarios`` waits for the corpus store
+(ROADMAP, queue 1, item 8) and the dry-run input specs for the sharding
+substrate (item 12).
 """
 from __future__ import annotations
 
@@ -74,11 +74,6 @@ SCENARIOS: dict[str, ScenarioSpec] = {
 }
 
 SCENARIO_IDS = tuple(SCENARIOS)
-
-#: families whose models the port does not have yet, and the ROADMAP item
-#: that brings them
-_WAITING = {"moe": "item 2 (MoE)",
-            "encdec": "item 3 (cross-attention and the encoder-decoder)"}
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -159,15 +154,12 @@ def build_scenario(name: str, n_ranks: int | None = None,
     from repro_torch.core.tracer import TraceSession, compute_cost
 
     spec = SCENARIOS[name]
-    if spec.family in _WAITING:
-        raise NotImplementedError(
-            f"scenario {name!r}: the {spec.family} family is not ported yet "
-            f"(ROADMAP {_WAITING[spec.family]})")
     n = spec.n_ranks if n_ranks is None else n_ranks
     steps = spec.steps if steps is None else steps
     cfg = smoke(get(spec.arch_id))
     kinds = {"transformer": ("train",), "flash": ("prefill",),
-             "ssm": ("decode",)}[spec.family]
+             "ssm": ("decode",), "moe": ("train", "prefill"),
+             "encdec": ("prefill", "decode")}[spec.family]
     costs = _model_costs(cfg, kinds)
     d = cfg.d_model
 
@@ -204,10 +196,44 @@ def build_scenario(name: str, n_ranks: int | None = None,
                                           "float32", ("ring",), (0,)))
         return sess.to_store()
 
-    # ssm: tensor-parallel decode, one SSM decode step + logits psum a token
-    logits = CommEvent("psum", (2, cfg.padded_vocab), "float32", ("mp",))
-    with TraceSession(n, {"mp": n}) as sess:
+    if spec.family == "ssm":
+        # tensor-parallel decode: one SSM decode step + logits psum a token
+        logits = CommEvent("psum", (2, cfg.padded_vocab), "float32", ("mp",))
+        with TraceSession(n, {"mp": n}) as sess:
+            for _ in range(steps):
+                sess.emit(None, ComputeEvent(costs["decode"]))
+                sess.emit(None, logits)
+        return sess.to_store()
+
+    if spec.family == "moe":
+        # expert-parallel training: token dispatch/combine all_to_alls
+        # around the expert compute, then the gradient psum
+        tok = (2 * 8 // n or 1, d)
+        disp = CommEvent("all_to_all", tok, "float32", ("ep",), (0, 0))
+        grads = CommEvent("psum", (d, cfg.d_ff_expert or cfg.d_ff),
+                          "float32", ("ep",))
+        with TraceSession(n, {"ep": n}) as sess:
+            for _ in range(steps):
+                sess.emit(None, ComputeEvent(costs["prefill"]))
+                sess.emit(None, disp)
+                sess.emit(None, ComputeEvent(costs["train"]))
+                sess.emit(None, disp)
+                sess.emit(None, grads)
+        return sess.to_store()
+
+    # encdec: a two-stage pipeline; encoder ranks prefill and ship their
+    # activations to a decoder peer, which runs decode steps (heterogeneous
+    # per-rank mains: the Algorithm 1 clustering case)
+    half = max(n // 2, 1)
+    act = CommEvent("ppermute", (2, 8, d), "float32", ("stage",),
+                    ("shift", half))
+    with TraceSession(n, {"stage": n}) as sess:
         for _ in range(steps):
-            sess.emit(None, ComputeEvent(costs["decode"]))
-            sess.emit(None, logits)
+            for r in range(half):
+                peer = r + half
+                sess.emit([r], ComputeEvent(costs["prefill"]))
+                if peer < n:
+                    sess.emit([r, peer], act)
+                    sess.emit([peer], ComputeEvent(costs["decode"]))
+        sess.emit(None, CommEvent("psum", (d,), "float32", ("stage",)))
     return sess.to_store()

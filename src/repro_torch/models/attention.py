@@ -1,14 +1,17 @@
-"""GQA attention: prefill self-attention and single-token decode against a
-KV cache.
+"""GQA attention: prefill self-attention, cross-attention and single-token
+decode against a KV cache.
 
 The port of ``src/repro/models/attention.py``.  Projection parameters are
 stored flattened, as in the reference: wq (d, h·hd), wk/wv (d, g·hd), wo
 (h·hd, d).  Long sequences (``s >= FLASH_MIN_SEQ``) take
 ``models/flash.py::flash_attention`` (the flash kernels: CUDA on the card,
 their plain versions on the CPU, with a backward), which takes any length,
-so nothing pads; short ones the direct ``_sdpa``, as in the reference.  Decode stays plain torch: ``_sdpa`` over
-the cache, which the reference also computes outside any kernel.  The
-reference's sharding constraints and cross-attention wait for later slices.
+so nothing pads; short ones the direct ``_sdpa``, as in the reference.
+Cross-attention (the encoder-decoder's decoder) takes the flash path
+without a mask for a query of ``FLASH_MIN_SEQ`` tokens or more, with s and
+t unequal.  Decode stays plain torch: ``_sdpa`` over the cache, which the
+reference also computes outside any kernel.  The reference's sharding
+constraints wait for the mesh slice.
 
 Decode updates the cache **in place** (the reference's
 ``dynamic_update_slice`` returns a new buffer): one token's K/V is written
@@ -98,6 +101,31 @@ def attention(p, x, positions, *, n_heads: int, n_kv: int, head_dim: int,
         mask = causal_mask(s, s, window, x.device) if causal else None
         out = _sdpa(q, k, v, mask)
     return _merge_out(out, p), (k, v)
+
+
+def cross_kv(p, kv_states, n_kv: int, head_dim: int):
+    """Project encoder states to cross-attention K/V (cacheable)."""
+    b, t, _ = kv_states.shape
+    k = (kv_states @ p["wk"]).reshape(b, t, n_kv, head_dim)
+    v = (kv_states @ p["wv"]).reshape(b, t, n_kv, head_dim)
+    if "k_norm" in p:
+        k = rms_norm(k, p["k_norm"])
+    return k, v
+
+
+def cross_attention(p, x, kv_states, *, n_heads: int, n_kv: int,
+                    head_dim: int, kv=None):
+    """x (b, s, d) attends to ``kv_states`` (b, t, d), unmasked.  ``kv``
+    short-circuits with precomputed (k, v) (the decode-time cache)."""
+    q = _split_heads(x @ p["wq"], n_heads, head_dim)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+    k, v = cross_kv(p, kv_states, n_kv, head_dim) if kv is None else kv
+    if x.shape[1] >= FLASH_MIN_SEQ:
+        out = flash_attention(q, k, v, causal=False)
+    else:
+        out = _sdpa(q, k, v, None)
+    return _merge_out(out, p)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ draws concrete weights on a device; ``params_from_numpy`` carries the
 reference's weights across value for value.  ``init_abstract`` and
 ``abstract_cache`` are the reference's shape-only stand-ins: meta tensors,
 which the cost walker runs on.  The encoder-decoder family
-waits for a later slice of the port and raises.
+(``family == "encdec"``) dispatches to :mod:`repro_torch.models.encdec`,
+every other family to :mod:`repro_torch.models.transformer`.
 """
 from __future__ import annotations
 
@@ -18,19 +19,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import init_tree, tree_map
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet (the "
-            "encdec slice of the port)")
-
-
 def param_tree(cfg: ArchConfig) -> dict:
-    _check_family(cfg)
+    if cfg.family == "encdec":
+        return E.init_encdec(cfg)
     return T.init_lm(cfg)
 
 
@@ -69,17 +65,27 @@ def params_from_numpy(tree, device=None) -> dict:
 
 def build_forward(cfg: ArchConfig, kind: str) -> Callable:
     """kind: 'loss' | 'prefill' | 'decode'."""
-    _check_family(cfg)
+    if cfg.family == "encdec":
+        return {"loss": E.encdec_loss, "prefill": E.encdec_prefill,
+                "decode": E.encdec_decode_step}[kind]
     return {"loss": T.lm_loss, "prefill": T.lm_prefill,
             "decode": T.lm_decode_step}[kind]
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None):
-    _check_family(cfg)
-    return T.init_lm_cache(cfg, batch, seq_len, resolve_device(device))
+def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None,
+               n_frames: int = 0):
+    """Zero decode caches at context ``seq_len``; an encoder-decoder's
+    cross K/V hold ``n_frames`` encoder states (default: the config's
+    ``n_audio_frames``)."""
+    dev = resolve_device(device)
+    if cfg.family == "encdec":
+        return E.init_encdec_cache(cfg, batch, seq_len,
+                                   n_frames or cfg.n_audio_frames, dev)
+    return T.init_lm_cache(cfg, batch, seq_len, dev)
 
 
-def abstract_cache(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+def abstract_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                   n_frames: int = 0) -> dict:
     """The decode cache as meta tensors: the reference's
     ``abstract_cache``."""
-    return init_cache(cfg, batch, seq_len, "meta")
+    return init_cache(cfg, batch, seq_len, "meta", n_frames)

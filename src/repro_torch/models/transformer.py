@@ -13,8 +13,10 @@ reference's walker charges the scan (the slices cost nothing, one scan
 step a unit).  ``cfg.remat`` checkpoints each unit
 (``torch.utils.checkpoint``, which saves nothing inside it: the
 reference's ``nothing_saveable`` policy).
-MoE layers and cross-attention (kind ``x``) wait for later slices of the
-port and raise.
+MoE layers (:mod:`repro_torch.models.moe`) take the layer's index, as in
+the reference, and ``backbone`` sums their balance loss over the layers.
+Cross-attention inside the LM (kind ``x``, the VLM) waits for a later
+slice of the port and raises.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tracer import scan_loop, uncharged
 from repro_torch.models import attention as A
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import (
     Param, chunked_loss, embed_lookup, embed_params, mlp_apply, mlp_params,
@@ -42,15 +45,11 @@ def _lcm(a: int, b: int) -> int:
 
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for what this slice of the port does not run yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (the MoE slice of "
-            "the port, after serving and training)")
     bad = sorted(set(cfg.layer_kinds()) - set(PORTED_KINDS))
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {bad} are not ported yet (cross-"
-            "attention and the VLM come in the cross-attention slice)")
+            f"{cfg.name}: layer kinds {bad} are not ported yet (the VLM's "
+            "cross-attention layers: ROADMAP, queue 1, item 4)")
 
 
 def unit_len(cfg: ArchConfig) -> int:
@@ -60,7 +59,7 @@ def unit_len(cfg: ArchConfig) -> int:
     return min(u, cfg.n_layers)
 
 
-def _layer_param(cfg: ArchConfig, kind: str) -> dict:
+def _layer_param(cfg: ArchConfig, kind: str, li: int) -> dict:
     d, dt = cfg.d_model, cfg.dtype
     p: dict[str, Any] = {"ln1": Param((d,), ("embed",), scale=0.0, dtype="float32")}
     if kind == "m":
@@ -71,7 +70,11 @@ def _layer_param(cfg: ArchConfig, kind: str) -> dict:
     else:
         p["attn"] = A.attn_params(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                   cfg.qk_norm, dt)
-    if cfg.d_ff:
+    if cfg.is_moe_layer(li):
+        p["ln2"] = Param((d,), ("embed",), scale=0.0, dtype="float32")
+        p["moe"] = M.moe_params(d, cfg.n_experts, cfg.d_ff_expert,
+                                cfg.n_shared_experts, cfg.d_ff_expert, dt)
+    elif cfg.d_ff:
         p["ln2"] = Param((d,), ("embed",), scale=0.0, dtype="float32")
         p["mlp"] = mlp_params(d, cfg.d_ff, dt)
     return p
@@ -94,9 +97,10 @@ def init_lm(cfg: ArchConfig) -> dict:
         "embed": embed_params(cfg.padded_vocab, cfg.d_model, cfg.dtype),
         "final_norm": Param((cfg.d_model,), ("embed",), scale=0.0,
                             dtype="float32"),
-        "unit": tuple(_stack(_layer_param(cfg, kinds[j]), n_units)
+        "unit": tuple(_stack(_layer_param(cfg, kinds[j], j), n_units)
                       for j in range(u)),
-        "rest": tuple(_layer_param(cfg, kinds[n_units * u + j])
+        "rest": tuple(_layer_param(cfg, kinds[n_units * u + j],
+                                   n_units * u + j)
                       for j in range(cfg.n_layers % u)),
     }
 
@@ -149,15 +153,20 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
-def _ffn(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, li: int, p: dict, x: torch.Tensor):
+    """The layer's feed-forward half: (x, MoE aux loss or None)."""
+    if cfg.is_moe_layer(li):
+        ff, aux = M.moe_apply(p["moe"], rms_norm(x, p["ln2"]), cfg.top_k,
+                              cfg.capacity_factor)
+        return x + ff, aux
     if cfg.d_ff:
         x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
-    return x
+    return x, None
 
 
-def _apply_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """One layer of the training forward (no cache)."""
+def _apply_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
+                 x: torch.Tensor, positions: torch.Tensor):
+    """One layer of the training forward (no cache): (x, aux or None)."""
     h = rms_norm(x, p["ln1"])
     if kind == "m":
         mix = S.ssm_apply(p["mixer"], h, head_dim=cfg.ssm_head_dim,
@@ -168,13 +177,15 @@ def _apply_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
         mix, _ = A.attention(p["attn"], h, positions, n_heads=cfg.n_heads,
                              n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                              theta=cfg.rope_theta, window=win, causal=True)
-    return _ffn(cfg, p, x + mix)
+    return _ffn(cfg, li, p, x + mix)
 
 
 def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig):
     """Embedded input (b, s, d) -> (final hidden states (b, s, d), aux).
 
-    aux is the MoE balance loss of the reference, 0 for these families."""
+    aux is the MoE balance loss of the reference, summed over the MoE
+    layers (0 without any).  It rides in the unit loop's carry, inside the
+    checkpointed unit, as in the reference's scan."""
     check_ported(cfg)
     u = unit_len(cfg)
     n_units = cfg.n_layers // u
@@ -182,25 +193,31 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig):
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
 
-    def unit_body(h, unit_p):
+    def add(aux, a):
+        return aux if a is None else aux + a
+
+    def unit_body(h, aux, unit_p):
         for j in range(u):
-            h = _apply_layer(cfg, kinds[j], unit_p[j], h, positions)
-        return h
+            h, a = _apply_layer(cfg, kinds[j], j, unit_p[j], h, positions)
+            aux = add(aux, a)
+        return h, aux
 
-    def body(h, unit_p):
+    def body(carry, unit_p):
         if cfg.remat:
-            return checkpoint(unit_body, h, unit_p, use_reentrant=False)
-        return unit_body(h, unit_p)
+            return checkpoint(unit_body, *carry, unit_p, use_reentrant=False)
+        return unit_body(*carry, unit_p)
 
-    x = scan_loop(n_units, body, x, xs=params["unit"])
-    for j, p in enumerate(params["rest"]):
-        x = _apply_layer(cfg, kinds[n_units * u + j], p, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = scan_loop(n_units, body, (x, aux), xs=params["unit"])
+    for j, p in enumerate(params["rest"]):
+        li = n_units * u + j
+        x, a = _apply_layer(cfg, kinds[li], li, p, x, positions)
+        aux = add(aux, a)
     return rms_norm(x, params["final_norm"]), aux
 
 
 def lm_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Causal-LM CE loss (+ 0.01 x the MoE aux loss, 0 here): batch =
+    """Causal-LM CE loss (+ 0.01 x the MoE aux loss): batch =
     {tokens (b, s), labels (b, s)}.  Builds no decode cache."""
     x = embed_inputs(params, batch, cfg)
     h, aux = backbone(params, x, cfg)
@@ -257,7 +274,7 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
     positions = torch.arange(s, device=x.device).expand(b, s)
     dt = torch_dtype(cfg.dtype)
 
-    def prefill_layer(kind, p, h):
+    def prefill_layer(kind, li, p, h):
         hh = rms_norm(h, p["ln1"])
         if kind == "m":
             mix, cache = S.ssm_apply(p["mixer"], hh, head_dim=cfg.ssm_head_dim,
@@ -278,12 +295,12 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
                 k = torch.roll(k[:, s - cl:], s % cl, dims=1)
                 v = torch.roll(v[:, s - cl:], s % cl, dims=1)
             cache = A.KVCache(k.to(dt), v.to(dt))
-        return _ffn(cfg, p, h + mix), cache
+        return _ffn(cfg, li, p, h + mix)[0], cache
 
     def unit_body(h, unit_p):
         caches = []
         for j in range(u):
-            h, c = prefill_layer(kinds[j], unit_p[j], h)
+            h, c = prefill_layer(kinds[j], j, unit_p[j], h)
             caches.append(c)
         return h, tuple(caches)
 
@@ -291,15 +308,16 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
                               stack_ys=True)
     rest_cache = []
     for j, p in enumerate(params["rest"]):
-        x, c = prefill_layer(kinds[n_units * u + j], p, x)
+        li = n_units * u + j
+        x, c = prefill_layer(kinds[li], li, p, x)
         rest_cache.append(c)
     x = rms_norm(x, params["final_norm"])
     logits = unembed(x[:, -1:], params["embed"])[:, 0]
     return logits, {"unit": unit_cache, "rest": tuple(rest_cache)}
 
 
-def _decode_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
-                  c: Any, pos: int):
+def _decode_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
+                  x: torch.Tensor, c: Any, pos: int):
     h = rms_norm(x, p["ln1"])
     if kind == "m":
         mix, new = S.ssm_decode(p["mixer"], h, c, head_dim=cfg.ssm_head_dim,
@@ -313,7 +331,7 @@ def _decode_layer(cfg: ArchConfig, kind: str, p: dict, x: torch.Tensor,
                                       n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                                       theta=cfg.rope_theta, window=win)
     _write_back(c, new)
-    return _ffn(cfg, p, x + mix)
+    return _ffn(cfg, li, p, x + mix)[0]
 
 
 def lm_decode_step(params: dict, cache: dict, batch: dict, pos: int,
@@ -331,13 +349,14 @@ def lm_decode_step(params: dict, cache: dict, batch: dict, pos: int,
     def unit_body(h, pc):
         unit_p, unit_c = pc
         for j in range(u):
-            h = _decode_layer(cfg, kinds[j], unit_p[j], h, unit_c[j], pos)
+            h = _decode_layer(cfg, kinds[j], j, unit_p[j], h, unit_c[j],
+                              pos)
         return h
 
     x = scan_loop(n_units, unit_body, x, xs=(params["unit"], cache["unit"]))
     for j, p in enumerate(params["rest"]):
-        x = _decode_layer(cfg, kinds[n_units * u + j], p, x,
-                          cache["rest"][j], pos)
+        li = n_units * u + j
+        x = _decode_layer(cfg, kinds[li], li, p, x, cache["rest"][j], pos)
     x = rms_norm(x, params["final_norm"])
     logits = unembed(x[:, 0:1], params["embed"])[:, 0]
     return logits, cache

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import torch_dtype, tree_map
 from repro_torch.models.model import build_forward, init_cache
 
 
@@ -61,6 +61,16 @@ class ServeEngine:
         self._prefill = build_forward(cfg, "prefill")
         self._decode = build_forward(cfg, "decode")
 
+    def _extras(self, batch_size: int) -> dict:
+        """The modality stubs the reference's engine feeds: zero audio
+        frames (b, n_audio_frames, d) in the config's dtype."""
+        out = {}
+        if self.cfg.n_audio_frames:
+            out["audio_frames"] = torch.zeros(
+                (batch_size, self.cfg.n_audio_frames, self.cfg.d_model),
+                dtype=torch_dtype(self.cfg.dtype), device=self.device)
+        return out
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -77,15 +87,15 @@ class ServeEngine:
 
         self._sync()
         t0 = time.perf_counter()
-        logits, pre_cache = self._prefill(self.params, {"tokens": tokens},
-                                          self.cfg)
+        batch = {"tokens": tokens, **self._extras(b)}
+        logits, pre_cache = self._prefill(self.params, batch, self.cfg)
         self._sync()
         t1 = time.perf_counter()
 
         # re-home the prefill cache into full-length decode buffers
-        cache = tree_map(self._embed_cache,
-                           init_cache(self.cfg, b, self.max_len, self.device),
-                           pre_cache)
+        full = init_cache(self.cfg, b, self.max_len, self.device,
+                          self.cfg.n_audio_frames)
+        cache = tree_map(self._embed_cache, full, pre_cache)
         del pre_cache
 
         tok = torch.argmax(logits, dim=-1).to(torch.int32)

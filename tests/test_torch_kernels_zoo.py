@@ -361,6 +361,65 @@ def test_ssd_split_tf32_holds_the_f32_limit_and_one_rounding_does_not():
     assert worst["tf32"] > 10 and worst["bf16_m"] > 10
 
 
+def _split3(a: torch.Tensor, z: torch.Tensor, eq: str) -> torch.Tensor:
+    """``einsum(eq, a, z)`` as 3xTF32 on the tensor cores computes it: each
+    f32 operand split into TF32 hi + lo, the lo . lo product dropped."""
+    ah, zh = _tf32(a), _tf32(z)
+    al, zl = _tf32(a - ah), _tf32(z - zh)
+    return (torch.einsum(eq, al, zh) + torch.einsum(eq, ah, zl)
+            + torch.einsum(eq, ah, zh))
+
+
+#: the score C_0 . B_0 the test below builds: its terms sum to about 13
+CANCELLED = 0.002
+
+
+def test_ssd_f32_limit_holds_where_c_dot_b_cancels():
+    """f32 inputs (the smoke configs), and one score C_0 . B_0 of 0.002
+    against sum |c b| of about 13: row 0 of each head is that score times
+    dt_0 x_0, small, while the dot product's rounding is set by its terms.
+    The plain f32 version lies within the limit of the exact (f64) value,
+    and so does the kernel's 3xTF32 arithmetic; without the tensor floor
+    the plain version itself missed the row limit (as it did on an H100
+    input, at 1.06 times)."""
+    b, c, q, g, r, p, n = 1, 1, 8, 1, 8, 16, 16
+    x, dt, cum, bm, cm = _ssd_inputs(23, b, c, q, g, r, p, n)
+    b0, c0 = bm[0, 0, 0, 0].astype(np.float64), cm[0, 0, 0, 0].astype(
+        np.float64)
+    c0 = c0 - (c0 @ b0 - CANCELLED) / (b0 @ b0) * b0
+    cm[0, 0, 0, 0] = c0.astype(np.float32)
+    assert np.abs(cm[0, 0, 0, 0] * bm[0, 0, 0, 0]).sum() > 8
+    ins = [torch.from_numpy(a) for a in (x, dt, cum, bm, cm)]
+    want = sref.ssd_diag_ref(*ins, r)
+    # ssd_diag_ref computes in f32: the exact value from f64 terms
+    s64 = torch.einsum("bcqgn,bckgn->bcgqk", ins[4].double(), ins[3].double())
+    cum64 = ins[2].double().reshape(b, c, q, g, r)
+    dec = cum64[:, :, :, None] - cum64[:, :, None]
+    iq = torch.arange(q)
+    seen = (iq[:, None] >= iq[None, :])[:, :, None, None]
+    m = s64.permute(0, 1, 3, 4, 2)[..., None] * torch.exp(
+        torch.where(seen, dec, -torch.inf))
+    a = m * ins[1].double().reshape(b, c, 1, q, g, r)
+    eq = "bcqkgr,bckgrp->bcqgrp"
+    xs = ins[0].double().reshape(b, c, q, g, r, p)
+    ex = torch.einsum(eq, a, xs).reshape(b, c, q, g * r, p)
+    # the kernel's arithmetic: 3xTF32 scores, split A times split x
+    s3 = _split3(ins[4], ins[3], "bcqgn,bckgn->bcgqk")
+    m3 = s3.permute(0, 1, 3, 4, 2)[..., None] * torch.exp(
+        torch.where(seen, dec.float(), -torch.inf))
+    a3 = m3 * ins[1].reshape(b, c, 1, q, g, r)
+    kern = _split3(a3, ins[0].reshape(b, c, q, g, r, p), eq).reshape(
+        b, c, q, g * r, p)
+    tol = tolerance.KERNEL_TOL[("ssd_diag", torch.float32)]
+    plain = tolerance.excess(want, ex.float(), *tol)
+    emul = tolerance.excess(kern, want, *tol)
+    row_only = tolerance.excess(want, ex.float(), *tol[:2])
+    print(f"plain vs exact {plain:.3g} (row limit alone {row_only:.3g}), "
+          f"3xTF32 vs plain {emul:.3g}")
+    assert plain <= 0.5 and emul <= 0.5
+    assert row_only > 1, "the row limit alone misses the cancelling row"
+
+
 def test_tf32_rounding_keeps_ten_mantissa_bits():
     x = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
                       -(1.0 + 3 * 2.0 ** -11)])

@@ -3,7 +3,9 @@ and weights (carried across with ``params_from_numpy``): norms, RoPE,
 prefill attention (flash dispatch and ``_sdpa``), decode attention
 (absolute and ring caches), the chunked SSD and the Mamba2 mixer, the
 chunked SSD against the literal recurrence, and the weight carry-across
-and init rules.  All in f32 on the CPU."""
+and init rules (the MoE and encoder-decoder trees too; ``moe_apply`` is in
+``test_torch_moe.py``, cross-attention in ``test_torch_encdec.py``).  All
+in f32 on the CPU."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,6 +36,9 @@ from repro_torch.models.model import init_params, params_from_numpy
 #: output is O(1)
 ATOL = 2e-5
 ARCHS = ["llama3.2-3b", "mamba2-2.7b", "gemma3-4b"]
+#: the MoE family and the encoder-decoder
+ZOO_ARCHS = ["deepseek-moe-16b", "mixtral-8x22b", "jamba-v0.1-52b",
+             "whisper-large-v3"]
 
 
 def _t(x) -> torch.Tensor:
@@ -206,7 +211,7 @@ def _configs(arch, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ZOO_ARCHS)
 def test_params_from_numpy_is_bit_identical(arch, dtype):
     jc, _ = _configs(arch, dtype)
     jp = jax.tree.map(np.asarray, jax_init_params(jc, 5))
@@ -232,7 +237,7 @@ def _abstract(tree):
             for s in jax.tree.leaves(tree)]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ZOO_ARCHS)
 def test_init_params_has_the_reference_structure(arch):
     """Smoke config, drawn on the CPU; full config on the meta device (no
     memory): the reference's leaves in the reference's order, with its
@@ -264,8 +269,7 @@ def test_init_params_follows_the_materialize_rule():
     assert tree_map(lambda t: t.device.type, p)["embed"] == "cpu"
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama-3.2-vision-90b",
-                                  "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         init_params(smoke(get(arch)), 0, "cpu")

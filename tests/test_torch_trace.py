@@ -27,7 +27,8 @@ from repro_torch.workloads import PROGRAMS, pipeline_traces
 from test_torch_harness import run_reference
 
 N = 4
-SCENARIO_NAMES = ("transformer-dp", "flash-ring", "ssm-decode")
+SCENARIO_NAMES = ("transformer-dp", "flash-ring", "ssm-decode", "moe-ep",
+                  "encdec-pipeline")
 #: (n_ranks, steps) of each scenario run: fidelity_baseline.json's, and the
 #: scenario's defaults (None)
 SCENARIO_SIZES = ((4, 2), (None, None))
@@ -479,9 +480,3 @@ def test_scenario_comm_streams_and_delta_match_reference(name, size, ref,
                                                   out_dir=tmp_path))
     assert port_lossless and np.isfinite(port_delta)
 
-
-def test_unported_scenarios_raise():
-    with pytest.raises(NotImplementedError, match="item 2"):
-        build_scenario("moe-ep")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        build_scenario("encdec-pipeline")

@@ -214,6 +214,23 @@ REF_COSTS = {
                                  1604641719566, 10822530048, 1376256, 576],
     'mamba2-2.7b full decode': [21952462848, 521791500, 11306227390, 26116,
                                 0, 64],
+    'deepseek-moe-16b smoke train': [45858816, 751520, 18200034, 10161,
+                                     1280, 4],
+    'deepseek-moe-16b smoke prefill': [14368768, 199756, 5422428, 2290,
+                                       1280, 2],
+    'whisper-large-v3 smoke prefill': [9240576, 197654, 4385976, 10614, 0,
+                                       4],
+    'whisper-large-v3 smoke decode': [540672, 20986, 1200544, 946, 8192, 2],
+    'deepseek-moe-16b full prefill': [49307902279680, 77972886476,
+                                      931572271654, 7601073664, 8946112,
+                                      700],
+    'deepseek-moe-16b full decode': [47861202944, 3882570972, 58435118998,
+                                     14719744, 3758102656, 28],
+    'whisper-large-v3 full prefill': [35604468858880, 199691249248,
+                                      2124913235398, 29630479072, 512,
+                                      2176],
+    'whisper-large-v3 full decode': [14433648640, 2859400844, 21241436478,
+                                     24830404, 2684354560, 32],
 }
 #: the port's, at its logged values (ROADMAP §3)
 PORT_COSTS = {
@@ -237,6 +254,23 @@ PORT_COSTS = {
                                  1435476535818, 10822530048, 1376256, 576],
     'mamba2-2.7b full decode': [21952462848, 521790984, 11332592826, 26116,
                                 0, 64],
+    'deepseek-moe-16b smoke train': [45858816, 696500, 27948090, 10738,
+                                     10068, 4],
+    'deepseek-moe-16b smoke prefill': [14368768, 201652, 5737278, 2290,
+                                       1732, 2],
+    'whisper-large-v3 smoke prefill': [9240576, 197350, 4377812, 10614, 0,
+                                       4],
+    'whisper-large-v3 smoke decode': [540672, 12768, 1174628, 946, 0, 2],
+    'deepseek-moe-16b full prefill': [49307902279680, 77907190508,
+                                      921363498454, 7601073664, 42435064,
+                                      700],
+    'deepseek-moe-16b full decode': [47861202944, 124448684, 50932488030,
+                                     14719744, 22680, 28],
+    'whisper-large-v3 full prefill': [35604468858880, 198096223104,
+                                      2124903597914, 29630479072, 512,
+                                      2176],
+    'whisper-large-v3 full decode': [14433648640, 175045704, 15881296314,
+                                     24830404, 0, 32],
 }
 #: columns exactly equal: tensor FLOPs, transcendentals and scan steps of
 #: every prefill and decode; the train rows' tensor FLOPs and scan steps

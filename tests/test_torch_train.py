@@ -24,7 +24,9 @@ import torch
 from repro.configs import get as jax_get, smoke as jax_smoke
 from repro.models import layers as JL
 from repro.models import transformer as JT
-from repro.models.model import init_params as jax_init_params
+from repro.models.model import (
+    build_forward as jax_build_forward, init_params as jax_init_params,
+)
 from repro.train import data as jax_data
 from repro.train import optimizer as JO
 from repro_torch.configs import get, smoke
@@ -44,6 +46,12 @@ from repro_torch.train.loop import (
 #: the flash path (and Gemma's windowed layers the windowed backward)
 ARCHS = [("llama3.2-3b", 1, 1024), ("mamba2-2.7b", 2, 64),
          ("gemma3-4b", 1, 1024)]
+#: the MoE family (DeepSeek at 1024 tokens, through flash; Mixtral's
+#: windows; Jamba's SSM, attention and alternate MoE layers: the smoke
+#: configs drop no token) and the encoder-decoder, with the data
+#: pipeline's random audio frames
+ZOO_ARCHS = [("deepseek-moe-16b", 1, 1024), ("mixtral-8x22b", 2, 40),
+             ("jamba-v0.1-52b", 2, 64), ("whisper-large-v3", 2, 24)]
 #: loss: f32 sums of the same terms in other orders (XLA against torch)
 LOSS_RTOL = 1e-5
 #: each gradient leaf within GRAD_RTOL of its largest |reference| value:
@@ -63,7 +71,8 @@ def _setup(arch: str, batch: int, seq: int, **overrides):
     cfg = dataclasses.replace(smoke(get(arch)), **overrides)
     jparams = jax_init_params(jcfg, 0)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
-    data = TokenDataset(cfg.vocab, seq, batch, seed=3).batch_at(0)
+    ds = TokenDataset(cfg.vocab, seq, batch, seed=3)
+    data = {**ds.batch_at(0), **ds.extras(cfg)}
     return jcfg, cfg, jparams, params, data
 
 
@@ -116,11 +125,12 @@ def test_softmax_xent_matches_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch,batch,seq", ARCHS)
+@pytest.mark.parametrize("arch,batch,seq", ARCHS + ZOO_ARCHS)
 def test_lm_loss_and_grads_match_reference(arch, batch, seq):
     jcfg, cfg, jparams, params, data = _setup(arch, batch, seq)
     jbatch = {k: jnp.asarray(v) for k, v in data.items()}
-    want, wgrads = jax.value_and_grad(JT.lm_loss)(jparams, jbatch, jcfg)
+    want, wgrads = jax.value_and_grad(jax_build_forward(jcfg, "loss"))(
+        jparams, jbatch, jcfg)
     loss_fn = build_forward(cfg, "loss")
     got, grads = _value_and_grad(lambda p, b: loss_fn(p, b, cfg), params,
                                  {k: torch.from_numpy(v)
@@ -418,6 +428,35 @@ def test_trainer_crash_resume_bitwise(tmp_path, seq):
     l2 = {m["step"]: m["loss"] for m in log2}
     for s in range(6):
         assert l1[s] == l2[s], s
+    for a, b in zip(tree_leaves(t1.params), tree_leaves(t2.params)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(t1.opt_state), tree_leaves(t2.opt_state)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "whisper-large-v3"])
+def test_trainer_crash_resume_bitwise_moe_and_encdec(tmp_path, arch):
+    """The same for the MoE family (the routing and the expert dispatch in
+    the step) and the encoder-decoder (the data pipeline's frames ride
+    along with every batch)."""
+    cfg = smoke(get(arch))
+    t1 = Trainer(cfg, global_batch=2, seq_len=16, ckpt_dir=tmp_path / "a",
+                 device="cpu")
+    log1 = t1.run(4, ckpt_every=2)
+    t2 = Trainer(cfg, global_batch=2, seq_len=16, ckpt_dir=tmp_path / "b",
+                 device="cpu")
+    crashed = []
+
+    def inject(step):
+        if step == 3 and not crashed:
+            crashed.append(1)
+            raise _InjectedFailure("simulated node loss")
+
+    log2 = t2.run(4, ckpt_every=2, failure_injector=inject)
+    assert crashed
+    l1 = {m["step"]: m["loss"] for m in log1}
+    l2 = {m["step"]: m["loss"] for m in log2}
+    assert len(log2) > len(log1) and l1 == l2
     for a, b in zip(tree_leaves(t1.params), tree_leaves(t2.params)):
         assert torch.equal(a, b)
     for a, b in zip(tree_leaves(t1.opt_state), tree_leaves(t2.opt_state)):

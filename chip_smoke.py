@@ -50,7 +50,21 @@ paths on the card, checking that each went through its kernels:
   depth (``DEEPSEEK_TRAIN_LAYERS``); the MoE and encoder-decoder smoke
   configs on the card against the CPU (serve, one training step,
   crash/resume); the ``moe-ep`` and ``encdec-pipeline`` scenarios in the
-  trace phase, and the walker's DeepSeek and Whisper prefill and decode.
+  trace phase, and the walker's DeepSeek and Whisper prefill and decode;
+- slice 9: the VLM and the rest of the paper's single-trace pipeline.
+  The roofline constants the H100's data sheet does not give
+  (``repro_torch.core.metrics``), measured; ``flash_fwd`` at Llama 3.2
+  Vision 90B's self-attention (GQA 64/8, causal) and cross-attention
+  (2048 queries to 1601 vision states, unmasked) against their plain
+  versions; the 64-rank trace's unrolled codegen flavor against the table
+  flavor (delta_bar, executed comm sequences, launches, states) and its
+  seeded noisy replay (bit-identical on repeat and across flavors, its
+  mean inside the CPU's band); the paper's Figs. 5-6 and Table 3 rows;
+  ``ServeEngine.generate`` on Llama 3.2 Vision 90B at its published widths
+  and 30 of its 100 layers (``SERVE_DEPTH``; 30 self and 6 cross
+  ``flash_fwd`` a generate), with its consistency on random vision
+  embeddings; the VLM smoke config on the card against the CPU (serve and
+  a training step).
 
 Then it times every kernel against its plain version, its bound and, where
 one PyTorch call computes the same function, that call; for the two
@@ -143,23 +157,32 @@ REFERENCE_MOE_BF16_DRIFT = 0.135
 CONSISTENCY_BF16_RTOL = {"llama3.2-3b": 0.05,
                          "mamba2-2.7b": 2 * REFERENCE_MAMBA2_BF16_DRIFT,
                          "deepseek-moe-16b": 2 * REFERENCE_MOE_BF16_DRIFT,
-                         "whisper-large-v3": 0.05}
+                         "whisper-large-v3": 0.05,
+                         "llama-3.2-vision-90b": 0.05}
 #: serve cells: prompt length (Whisper's 416 + 32 new tokens are its
 #: published 448 decoder positions); each launches its kernel once an
 #: attention (or SSD) layer of the prefill: the encoder's, for Whisper
 SERVE_CELLS = {"llama3.2-3b": (2048, "flash_fwd"),
                "mamba2-2.7b": (2048, "ssd_diag"),
                "deepseek-moe-16b": (2048, "flash_fwd"),
-               "whisper-large-v3": (416, "flash_fwd")}
-#: DeepSeek-MoE's f32 weights (62 GiB) beside its bf16 ones do not fit the
-#: card: the f32 consistency check runs its first 8 layers
-DEEPSEEK_F32_LAYERS = 8
+               "whisper-large-v3": (416, "flash_fwd"),
+               "llama-3.2-vision-90b": (2048, "flash_fwd")}
+#: serve cells cut in depth: Llama 3.2 Vision 90B's 89.6 B parameters (179
+#: GB in bf16) do not fit one card; 6 of its 20 units of four self-attention
+#: layers and one cross-attention layer (30 of 100 layers) are 27.6 B
+#: parameters, 51.5 GiB, at the published widths
+SERVE_DEPTH = {"llama-3.2-vision-90b": 30}
+#: the f32 consistency checks' cut depths: the f32 weights of all layers do
+#: not fit beside the bf16 ones (DeepSeek-MoE's 62 GiB; the VLM's cut at
+#: one unit of five layers, 20 GiB in f32)
+F32_CUT = {"deepseek-moe-16b": 8, "llama-3.2-vision-90b": 5}
 SSM_LAYER_BF16_RTOL = 2.0 ** -4
 #: calls a case of --launch-cost: 20 processes of it fit in a quarter hour
 LAUNCH_COST_CALLS = 2000
 SMOKE_PROMPTS = {"llama3.2-3b": 1024, "mamba2-2.7b": 256, "gemma3-4b": 1024,
                  "deepseek-moe-16b": 1024, "mixtral-8x22b": 1024,
-                 "jamba-v0.1-52b": 256, "whisper-large-v3": 1024}
+                 "jamba-v0.1-52b": 256, "whisper-large-v3": 1024,
+                 "llama-3.2-vision-90b": 1024}
 
 
 def fail(msg: str) -> None:
@@ -545,16 +568,272 @@ def phase_per_rank_seeds(res) -> None:
           f"{1e3 * (t2 - t1):.1f} ms, max |diff| = {worst:.3g}")
 
 
+#: slice 9's noisy replay of the 64-rank trace
+NOISE_SEED, NOISE_REPLICAS = 3, 4
+
+
+def executed_comms(res, rank: int) -> list:
+    """The collectives ``rank``'s replay issues, in order, on the card: a
+    LocalSim that records every ``do``."""
+    from repro_torch.sharding.collectives import LocalSim
+
+    calls: list = []
+
+    class Recorder(LocalSim):
+        def do(self, st, buf, *, kind, axes, detail, shape, dtype):
+            calls.append((kind, tuple(axes), tuple(detail), tuple(shape),
+                          dtype))
+            return super().do(st, buf, kind=kind, axes=axes, detail=detail,
+                              shape=shape, dtype=dtype)
+
+    res.proxy.module.run_rank(res.proxy.init_state(0), Recorder(), rank)
+    return calls
+
+
+def phase_flavors_and_noise(dev, res) -> dict:
+    """Slice 9 on the 64-rank trace: the unrolled codegen flavor against
+    the table flavor of phase_main_path (delta_bar and the executed comm
+    sequence of every signature group bit-identical, the same
+    mxu_iter/stream_iter launches, equal final states); then seeded noisy
+    replay, run_all(noise=NoiseConfig(3, 4)): its ms and launches beside
+    the deterministic run_all's, the distribution bit-identical on repeat
+    and across the flavors, and its mean inside the CPU run's ci()."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core import noise as N
+    from repro_torch.core.replay import ProxyProgram
+    from repro_torch.core.synthesize import synthesize
+
+    t0 = time.perf_counter()
+    unrolled = synthesize(store=res.store, device=dev, codegen="unrolled",
+                          name="proxy_unrolled",
+                          out_dir=ROOT / "build" / "chip_smoke")
+    t1 = time.perf_counter()
+    if unrolled.stats["codegen"] != "unrolled":
+        fail(f"codegen stats {unrolled.stats['codegen']!r}")
+    runs = {}
+    for name, r in (("table", res), ("unrolled", unrolled)):
+        r.proxy.run_all()                       # warm
+        reset_counts()
+        t = time.perf_counter()
+        states = r.proxy.run_all()
+        runs[name] = (states, 1e3 * (time.perf_counter() - t), read_counts())
+    (st_t, ms_t, l_t), (st_u, ms_u, l_u) = runs["table"], runs["unrolled"]
+    print(f"unrolled flavor: synthesize {1e3 * (t1 - t0):.1f} ms, "
+          f"{unrolled.stats['source_lines']} source lines (table "
+          f"{res.stats['source_lines']}); run_all {ms_u:.1f} ms (table "
+          f"{ms_t:.1f}); launches {json.dumps(l_u)} (table {json.dumps(l_t)})")
+    if l_u != l_t or l_t["mxu_iter"] <= 0 or l_t["stream_iter"] <= 0:
+        fail(f"unrolled launches {l_u} != table {l_t}")
+    for r in st_t:
+        if any(not torch.equal(st_t[r][k], st_u[r][k]) for k in st_t[r]):
+            fail(f"unrolled final state of rank {r} differs from the table's")
+    ft, fu = res.fidelity(sample_ranks=None), unrolled.fidelity(
+        sample_ranks=None)
+    if not (np.array_equal(ft.delta, fu.delta) and ft.comm_lossless
+            and fu.comm_lossless):
+        fail(f"unrolled delta_bar {fu.mean!r} != table {ft.mean!r} or not "
+             "lossless")
+    for _sig, grp in res.proxy.signature_groups():
+        got_t, got_u = executed_comms(res, grp[0]), executed_comms(
+            unrolled, grp[0])
+        want = [(e.kind, tuple(e.axes), tuple(e.detail), tuple(e.shape),
+                 e.dtype) for e in (res.merged.table[i] for i in
+                                    res.proxy.expand_rank_ids(grp[0]))
+                if hasattr(e, "kind")]
+        if not got_t == got_u == want:
+            fail(f"executed comm sequence of rank {grp[0]} differs across "
+                 "flavors or from the trace")
+    print(f"unrolled flavor: delta_bar {fu.mean!r} bit-identical to the "
+          f"table's; executed comm sequences of the "
+          f"{len(res.proxy.signature_groups())} groups identical")
+
+    cfg = N.NoiseConfig(seed=NOISE_SEED, n_replicas=NOISE_REPLICAS)
+    res.proxy.run_all(noise=cfg)                # warm
+    reset_counts()
+    t = time.perf_counter()
+    noisy = res.proxy.run_all(noise=cfg)
+    ms_noisy = 1e3 * (time.perf_counter() - t)
+    l_noisy = read_counts()
+    draws = [int(noisy[g[0]][N.NOISE_KEY][0, 2])
+             for _s, g in res.proxy.signature_groups()]
+    print(f"noisy run_all (seed {cfg.seed}, {cfg.n_replicas} replicas): "
+          f"{ms_noisy:.1f} ms, launches {json.dumps(l_noisy)}; "
+          f"deterministic {ms_t:.1f} ms, {json.dumps(l_t)}; draws a "
+          f"replica by group {draws}")
+    if l_noisy != l_t:
+        fail(f"noisy launches {l_noisy} != deterministic {l_t}")
+    a = res.fidelity(sample_ranks=None, noise=cfg)
+    b = res.fidelity(sample_ranks=None, noise=cfg)
+    c = unrolled.fidelity(sample_ranks=None, noise=cfg)
+    for what, other in (("repeat", b), ("unrolled flavor", c)):
+        if not (np.array_equal(a.replica_delta, other.replica_delta)
+                and np.array_equal(a.comm_bytes, other.comm_bytes)):
+            fail(f"noisy distribution differs on {what}")
+    cpu = dataclasses.replace(res, proxy=ProxyProgram(
+        res.source, res.proxy.module, res.merged, res.proxy.combos,
+        res.proxy.axis_sizes, device="cpu"))
+    d = cpu.fidelity(sample_ranks=None, noise=cfg)
+    lo, hi = d.ci()
+    print(f"noisy delta_bar: card {a.mean!r} (ci {a.ci()}), CPU {d.mean!r} "
+          f"(ci {(lo, hi)}); deterministic {ft.mean!r}; bit-identical on "
+          "repeat and across flavors")
+    if not lo <= a.mean <= hi:
+        fail(f"the card's noisy mean {a.mean} is outside the CPU's ci "
+             f"{(lo, hi)}")
+    return {"unrolled_synthesize_ms": 1e3 * (t1 - t0),
+            "run_all_ms": {"table": ms_t, "unrolled": ms_u,
+                           "noisy": ms_noisy},
+            "launches": {"table": l_t, "unrolled": l_u, "noisy": l_noisy},
+            "delta_bar": ft.mean, "noisy_mean": a.mean,
+            "noisy_ci": list(a.ci()), "noisy_mean_cpu": d.mean,
+            "noisy_ci_cpu": [lo, hi], "draws_a_replica": draws}
+
+
+def phase_baselines(dev) -> dict:
+    """The paper's comparisons on the card: Figs. 5-6 (Siesta's QP fit
+    against MINIME's greedy, one aggregate event and per event summed) on
+    stencil2d, dp_train and the pipeline at 8 ranks, and Table 3 (events,
+    trace and grammar bytes, ratio, synthesize seconds, delta_bar,
+    lossless) at 4 and 8 ranks, each Table 3 row against the same
+    synthesis on the CPU."""
+    from repro_torch.core.baselines import fig56_rows, table3_row
+    from repro_torch.core.events import ComputeEvent
+    from repro_torch.core.synthesize import synthesize
+    from repro_torch.core.tracer import trace_fn
+    from repro_torch.workloads import PROGRAMS, pipeline_traces
+
+    fig = []
+    for name, make in PROGRAMS.items():
+        fn, args, axes = make(8)
+        tr = trace_fn(fn, *args, axis_sizes=axes)
+        fig += fig56_rows(name, [e.vector for e in tr.compute_events()])
+    fig += fig56_rows("pipeline", [e.vector for e in pipeline_traces(8)[0]
+                                   if isinstance(e, ComputeEvent)])
+    for r in fig:
+        print(f"fig 5-6 {r['program']} {r['mode']}: siesta "
+              f"{r['siesta_err']!r}, minime {r['minime_err']!r}")
+        if not r["siesta_err"] < r["minime_err"]:
+            fail(f"fig 5-6 {r}: the QP does not beat the greedy")
+    out_dir = ROOT / "build" / "chip_smoke_table3"
+    table = []
+    for name in (*PROGRAMS, "pipeline"):
+        for n in (4, 8):
+            rows = {}
+            for where in ("cuda", "cpu"):
+                kw = dict(device=None if where == "cuda" else "cpu",
+                          name=f"{name}_{n}", out_dir=out_dir / where)
+                t0 = time.perf_counter()
+                if name == "pipeline":
+                    res = synthesize(rank_traces=pipeline_traces(n),
+                                     axis_sizes={"stage": n}, **kw)
+                else:
+                    fn, args, axes = PROGRAMS[name](n)
+                    res = synthesize(fn, *args, axis_sizes=axes, **kw)
+                if where == "cuda":
+                    torch.cuda.synchronize()
+                rows[where] = table3_row(name, n, res,
+                                         time.perf_counter() - t0)
+            row, cpu = rows["cuda"], rows["cpu"]
+            print(f"table 3 {json.dumps(row)}")
+            same = {k: row[k] == cpu[k] for k in row
+                    if k not in ("synth_sec", "rel_err")}
+            if not all(same.values()) or not row["lossless_comm"] or \
+                    abs(row["rel_err"] - cpu["rel_err"]) > TRACE_DELTA_ATOL:
+                fail(f"table 3 {name} at {n}: the card's row {row} differs "
+                     f"from the CPU's {cpu}")
+            table.append(row)
+    return {"fig56": fig, "table3": table}
+
+
+#: a microbenchmark of the SFU: dependent __expf chains, four a thread
+PROBE_SOURCE = r"""
+#include <cuda_runtime.h>
+
+extern "C" const char* cuda_error_name(int code) {
+  return cudaGetErrorName((cudaError_t)code);
+}
+
+__global__ void exp_chain_kernel(float* out, int iters) {
+  float a = threadIdx.x * 1e-7f, b = a + 0.25f, c = a + 0.5f, d = a + 0.75f;
+  for (int i = 0; i < iters; ++i) {
+    a = __expf(-a); b = __expf(-b); c = __expf(-c); d = __expf(-d);
+  }
+  out[blockIdx.x * blockDim.x + threadIdx.x] = a + b + c + d;
+}
+
+extern "C" int exp_chain(float* out, int blocks, int threads, int iters,
+                         void* stream) {
+  exp_chain_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def phase_constants(dev) -> dict:
+    """Measure the roofline constants the H100's data sheet does not give
+    (``repro_torch.core.metrics``: TRANS_RATE, GATHER_RATE, SCAN_OVERHEAD)
+    and print them beside the module's values: exps/s of dependent
+    ``__expf`` chains on every SM; f32 elements/s of ``torch.take`` of
+    2^24 random indices from a 2^28-element table; seconds a turn of
+    ``tracer.counted_loop`` whose body is one elementwise op."""
+    import ctypes
+    from repro_torch.core import metrics
+    from repro_torch.core.tracer import counted_loop
+    from repro_torch.kernels import build
+
+    src = ROOT / "build" / "chip_smoke" / "probe" / "kernel.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(PROBE_SOURCE)
+    lib = build.load(src, {"exp_chain": ([ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p], ctypes.c_int)})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks, threads, iters = 16 * sms, 256, 8192
+    out = torch.empty(blocks * threads, device=dev)
+
+    def chain():
+        build.check(lib, lib.exp_chain(
+            out.data_ptr(), blocks, threads, iters,
+            torch.cuda.current_stream(dev).cuda_stream), "exp_chain")
+
+    trans = 4 * blocks * threads * iters / (1e-3 * cuda_ms(chain, 5))
+    if not torch.isfinite(out).all():
+        fail("exp_chain gave non-finite values")
+    table = torch.rand(2 ** 28, device=dev)
+    idx = torch.randint(0, 2 ** 28, (2 ** 24,), device=dev)
+    gather = 2 ** 24 / (1e-3 * cuda_ms(lambda: torch.take(table, idx), 20))
+    del table, idx
+    x = torch.zeros((), device=dev)
+    counted_loop(100, lambda c: c + 1, x)
+    torch.cuda.synchronize()
+    turns = 20000
+    t0 = time.perf_counter()
+    y = counted_loop(turns, lambda c: c + 1, x)
+    torch.cuda.synchronize()
+    scan = (time.perf_counter() - t0) / turns
+    if float(y) != turns:
+        fail(f"counted_loop gave {float(y)}, expected {turns}")
+    got = {"TRANS_RATE": trans, "GATHER_RATE": gather,
+           "SCAN_OVERHEAD": scan}
+    for name, v in got.items():
+        print(f"constant {name}: measured {v!r} (repro_torch.core.metrics: "
+              f"{getattr(metrics, name)!r})")
+    return got
+
+
 TRACE_SCENARIOS = ("transformer-dp", "flash-ring", "ssm-decode", "moe-ep",
                    "encdec-pipeline")
 #: full-width model costs the trace phase walks: batch 4 x 2048 tokens,
 #: decode against a cache of 8192 (the reference cannot walk a full-width
 #: train step, and the scenarios walk only DeepSeek's and Whisper's smoke
-#: train steps, so those two are walked for prefill and decode)
+#: train steps, so those two are walked for prefill and decode; the VLM at
+#: its 100 layers, which no card holds)
 TRACE_COSTS = (("llama3.2-3b", ("prefill", "decode", "train")),
                ("mamba2-2.7b", ("prefill", "decode", "train")),
                ("deepseek-moe-16b", ("prefill", "decode")),
-               ("whisper-large-v3", ("prefill", "decode")))
+               ("whisper-large-v3", ("prefill", "decode")),
+               ("llama-3.2-vision-90b", ("prefill", "decode")))
 TRACE_DELTA_ATOL = 1e-12
 
 
@@ -663,10 +942,12 @@ def phase_trace(dev) -> dict:
     return {"targets": rows, "costs": costs}
 
 
-def flash_inputs(gen, b, s, h, g, d, dtype, dev):
+def flash_inputs(gen, b, s, h, g, d, dtype, dev, t=None):
+    """q (b, s, h, d) and k, v (b, t, g, d) (t = s unless given), N(0, 1)."""
+    t = s if t is None else t
     q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
-    k = torch.randn((b, s, g, d), generator=gen, device=dev).to(dtype)
-    v = torch.randn((b, s, g, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, t, g, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, t, g, d), generator=gen, device=dev).to(dtype)
     return q, k, v
 
 
@@ -721,6 +1002,14 @@ SSD_MAIN = dict(b=4, c=8, q=256, g=1, r=80, p=64, n=128)
 #: causal) by cell
 FLASH_SHAPES = {"deepseek-moe-16b": (4, 2048, 16, 16, 128, True),
                 "whisper-large-v3": (4, 1500, 20, 20, 64, False)}
+#: slice 9's flash shapes (bf16): Llama 3.2 Vision 90B's prefill
+#: self-attention (GQA 64/8, causal) and its cross-attention of the 2048
+#: queries to the 1601 vision states (unmasked, s != t); (b, s, t, h, g, d,
+#: causal) by name; the self shape's launches are the serve cell's causal
+#: calls, the cross shape's its unmasked ones
+VLM = "llama-3.2-vision-90b"
+VLM_FLASH_SHAPES = {VLM: (4, 2048, 2048, 64, 8, 128, True),
+                    f"{VLM} cross": (4, 2048, 1601, 64, 8, 128, False)}
 
 
 def phase_zoo_kernels(dev) -> dict:
@@ -779,6 +1068,18 @@ def phase_zoo_kernels(dev) -> dict:
                 if main and got.dtype == torch.float32:
                     errs["ssd_diag"] = err
             del ins
+    # slice 9's shapes, from a generator of their own (the sweep's inputs
+    # above stay as they were)
+    vgen = torch.Generator(device=dev).manual_seed(9)
+    for cell, (b, s, t, h, g, d, causal) in VLM_FLASH_SHAPES.items():
+        q, k, v = flash_inputs(vgen, b, s, h, g, d, torch.bfloat16, dev, t)
+        got = fops.flash_attention_fwd(q, k, v, causal=causal)
+        want = fref.attention_ref(q, k, v, causal=causal)
+        errs[f"flash_fwd {cell}"] = check_close(
+            "flash_fwd", got, want, f"{cell}: b={b} s={s} t={t} h={h} g={g} "
+            f"d={d} causal={causal} bfloat16")
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
     # views that start off a 16-byte boundary are copied; empty inputs
     # launch nothing
     q, k, v = flash_inputs(gen, 1, 65, 2, 1, 16, torch.float32, dev)
@@ -807,15 +1108,19 @@ def serve_prompts(cfg, b: int, s: int, seed: int = 0):
 
 def model_batch(cfg, tokens, dev, seed: int = 0) -> dict:
     """{tokens} and, for an encoder-decoder, random N(0, 1) audio frames
-    (b, n_audio_frames, d) in the config's dtype, from ``seed``: the
-    checks that call the prefill directly feed the encoder something that
-    is not zero (the serve engine feeds the reference's zero frames)."""
+    (b, n_audio_frames, d), for the VLM random N(0, 1) vision embeddings
+    (b, n_vision_tokens, d), in the config's dtype, from ``seed``: the
+    checks that call the prefill directly feed the encoder and the
+    cross-attention something that is not zero (the serve engine feeds the
+    reference's zeros, which make every cross-attention output 0)."""
     out = {"tokens": tokens}
-    if cfg.n_audio_frames:
-        gen = torch.Generator(device=dev).manual_seed(100 + seed)
-        out["audio_frames"] = torch.randn(
-            (tokens.shape[0], cfg.n_audio_frames, cfg.d_model),
-            generator=gen, device=dev).to(getattr(torch, cfg.dtype))
+    for key, n in (("audio_frames", cfg.n_audio_frames),
+                   ("vision_embeds", cfg.n_vision_tokens)):
+        if n:
+            gen = torch.Generator(device=dev).manual_seed(100 + seed)
+            out[key] = torch.randn((tokens.shape[0], n, cfg.d_model),
+                                   generator=gen, device=dev).to(
+                getattr(torch, cfg.dtype))
     return out
 
 
@@ -852,6 +1157,25 @@ def moe_routes(records: list):
         yield
     finally:
         M.route = route
+
+
+@contextlib.contextmanager
+def flash_calls(records: list):
+    """Record the ``causal`` flag of each flash-attention call of the
+    models (self-attention: True; cross-attention: False)."""
+    from repro_torch.models import attention as A
+
+    flash = A.flash_attention
+
+    def spy(*args, **kwargs):
+        records.append(bool(kwargs.get("causal", True)))
+        return flash(*args, **kwargs)
+
+    A.flash_attention = spy
+    try:
+        yield
+    finally:
+        A.flash_attention = flash
 
 
 def drop_shares(records: list) -> dict:
@@ -973,6 +1297,10 @@ def phase_serve(dev, arch: str) -> dict:
 
     cfg = get(arch)
     plen, kernel = SERVE_CELLS[arch]
+    if arch in SERVE_DEPTH:
+        print(f"serve {arch}: cut to {SERVE_DEPTH[arch]} of {cfg.n_layers} "
+              "layers at the published widths")
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -990,13 +1318,24 @@ def phase_serve(dev, arch: str) -> dict:
     prompts = serve_prompts(cfg, SERVE_BATCH, plen)
     engine = ServeEngine(cfg, params, device=dev, max_len=plen + SERVE_NEW)
     reset_counts()
-    res = engine.generate(prompts, SERVE_NEW)
+    causal: list = []
+    with flash_calls(causal):
+        res = engine.generate(prompts, SERVE_NEW)
     launches = read_counts()
     print(f"serve {arch} launches: {json.dumps(launches)}")
-    want = cfg.enc_layers or cfg.n_layers
+    # one a layer of the prefill (the encoder's for Whisper); the VLM's
+    # cross-attention layers launch once more, unmasked
+    n_cross = cfg.layer_kinds().count("x")
+    want = (cfg.enc_layers or cfg.n_layers) + n_cross
     if launches[kernel] != want:
         fail(f"{arch}: {kernel} launched {launches[kernel]} times per "
              f"generate, expected {want} (one per layer)")
+    calls = {"self": causal.count(True), "cross": causal.count(False)}
+    if cfg.n_vision_tokens:
+        print(f"serve {arch} flash_fwd a generate: {json.dumps(calls)}")
+        if calls != {"self": cfg.n_layers, "cross": n_cross}:
+            fail(f"{arch}: flash_fwd calls {calls}, expected "
+                 f"{cfg.n_layers} self and {n_cross} cross")
     others = {k: n for k, n in launches.items() if k != kernel and n}
     if others:
         fail(f"{arch}: unexpected launches {others}")
@@ -1006,7 +1345,9 @@ def phase_serve(dev, arch: str) -> dict:
     warm = engine.generate(prompts, SERVE_NEW)      # the same run, warm
     if not (warm.tokens == res.tokens).all():
         fail(f"{arch}: a second generate gave other tokens")
-    row = {"launches": launches[kernel],
+    row = {"launches": launches[kernel], "flash_calls": calls,
+           "layers": cfg.n_layers,
+           "parameters": n_params,
            "prefill_ms": 1e3 * warm.prefill_sec,
            "decode_ms": 1e3 * warm.decode_sec,
            "tokens_per_sec": warm.tokens_per_sec,
@@ -1038,8 +1379,10 @@ def phase_serve(dev, arch: str) -> dict:
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     with torch.inference_mode():
         batch = {"tokens": toks, **engine._extras(SERVE_BATCH)}
+        prof: dict = {}
         profile_call(lambda: engine._prefill(params, batch, cfg),
-                     f"{arch} prefill")
+                     f"{arch} prefill", prof)
+        row["prefill_busy_share"] = prof.get("busy_share")
         del batch
     split = plen - 256
     ccfg = cfg
@@ -1054,8 +1397,8 @@ def phase_serve(dev, arch: str) -> dict:
         row["layers_bf16"] = check_ssm_layers(cfg, params, prompts, dev, split,
                                               SSM_LAYER_BF16_RTOL)
     del engine
-    if cfg.n_experts:
-        ccfg, params = cut_depth(ccfg, params, DEEPSEEK_F32_LAYERS)
+    if arch in F32_CUT:
+        ccfg, params = cut_depth(ccfg, params, F32_CUT[arch])
         print(f"serve {arch} f32 consistency at {ccfg.n_layers} of "
               f"{cfg.n_layers} layers (the f32 weights of all do not fit "
               "beside the bf16 ones)")
@@ -1744,7 +2087,7 @@ def train_smoke_configs(dev) -> None:
               f"{json.dumps(launches)}")
         kinds = set(cfg.layer_kinds())
         want = {"ssd_diag"} if "m" in kinds else set()
-        if seq >= 1024 and kinds & {"g", "l"}:
+        if seq >= 1024 and kinds & {"g", "l", "s", "x"}:
             want |= {"flash_fwd", "flash_bwd"}
         if not want or any(launches[k] <= 0 for k in want):
             fail(f"train smoke {arch}: {want} not all launched: {launches}")
@@ -1922,10 +2265,11 @@ def phase_flash_bwd_versus(trees: list[Path]) -> None:
 
 def phase_shape_timings(dev, errs: dict, serve: dict, train: dict) -> list:
     """Slice 8's kernel shapes (FLASH_SHAPES): flash_fwd at DeepSeek-MoE's
-    prefill and Whisper's encoder, flash_bwd at Whisper's encoder; each
-    timed in turns with PyTorch's SDPA (its backward alone for flash_bwd)
-    on the same tensors, beside its plain version, its bound and its
-    launches a path run (a generate; a train step)."""
+    prefill and Whisper's encoder, flash_bwd at Whisper's encoder; and
+    slice 9's (VLM_FLASH_SHAPES): flash_fwd at the VLM's self- and
+    cross-attention; each timed in turns with PyTorch's SDPA (its backward
+    alone for flash_bwd) on the same tensors, beside its plain version, its
+    bound and its launches a path run (a generate; a train step)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
 
@@ -1982,6 +2326,33 @@ def phase_shape_timings(dev, errs: dict, serve: dict, train: dict) -> list:
                 "bound_ms": bnd, "bound_by": bby, "library_ms": turns[1],
                 "flops": flops})
             del out, lse, dout, ot, dot
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    for cell, (b, s, t, h, g, d, causal) in VLM_FLASH_SHAPES.items():
+        q, k, v = flash_inputs(gen, b, s, h, g, d, torch.bfloat16, dev, t)
+        pairs = s * (s + 1) / 2 if causal else s * t
+        flops = 4 * b * h * d * pairs
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kern = lambda: fops.flash_attention_fwd(q, k, v, causal=causal)  # noqa
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        with torch.no_grad():
+            turns = [cuda_ms(kern, 20), cuda_ms(lib, 20), cuda_ms(kern, 20)]
+        bnd, bby = bound(2 * (2 * b * s * h * d + 2 * b * t * g * d), flops,
+                         PEAK_BF16_FLOPS)
+        calls = serve[VLM]["flash_calls"]
+        rows.append({"name": "flash_fwd", "cell": cell,
+                     "shape": dict(b=b, s=s, t=t, h=h, g=g, d=d,
+                                   causal=causal),
+                     "launches": {"generate": calls["self" if causal
+                                                    else "cross"],
+                                  "serve_layers": serve[VLM]["layers"]},
+                     "max_abs_err": errs[f"flash_fwd {cell}"],
+                     "ms": (turns[0] + turns[2]) / 2,
+                     "plain_ms": cuda_ms(lambda: fref.attention_ref(
+                         q, k, v, causal=causal), 3),
+                     "bound_ms": bnd, "bound_by": bby, "library_ms": turns[1],
+                     "flops": flops})
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     for r in rows:
@@ -2127,10 +2498,17 @@ def main() -> None:
     phase_build()
     errs = phase_kernels(dev)
     errs.update(phase_zoo_kernels(dev))
+    constants = phase_constants(dev)
     launches, res = phase_main_path(dev)
     phase_profile(res)
     phase_per_rank_seeds(res)
+    proxy = phase_flavors_and_noise(dev, res)
     del res
+    t0 = time.perf_counter()
+    baselines = phase_baselines(dev)
+    baselines["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"constants": constants, "proxy": proxy,
+                      "baselines": baselines}))
     serve = {arch: phase_serve(dev, arch) for arch in SERVE_CELLS}
     launches["flash_fwd"] = serve["llama3.2-3b"]["launches"]
     launches["ssd_diag"] = serve["mamba2-2.7b"]["launches"]

@@ -333,3 +333,51 @@ def op_cost(func, args, kwargs, out) -> np.ndarray:
         c[I_VPU] = out_elems
     return c
 
+
+
+# ---------------------------------------------------------------------------
+# Roofline-style time estimate for one event (the ScalaBench-style baseline
+# and the paper's portability comparison, core/baselines.py).  The
+# reference's constants are a TPU's; these are one NVIDIA H100 SXM's, under
+# the reference's names.
+# ---------------------------------------------------------------------------
+
+#: dense bf16 tensor-core peak, FLOP/s (H100 SXM data sheet)
+PEAK_FLOPS_BF16 = 989e12
+#: HBM3 bandwidth, B/s (H100 SXM data sheet)
+HBM_BW = 3.35e12
+#: one NVLink 4 link in one direction, B/s (data sheet: 18 links, 900 GB/s
+#: in both directions together), where the reference takes one ICI link
+ICI_BW = 25e9
+#: element ops/s on the CUDA cores: the data sheet's 67 TFLOP/s f32 counts
+#: a fused multiply-add as two operations, an elementwise op is one
+VPU_RATE = 33.5e12
+#: transcendentals/s: dependent __expf chains on every SM (the MUFU),
+#: measured by chip_smoke.py (phase_constants) on an NVIDIA H100 80GB HBM3,
+#: 700.00 W: 4.0954e12 (4.0575e12 in another call)
+TRANS_RATE = 4.095e12
+#: irregular (gathered) f32 elements/s: torch.take of 2^24 random indices
+#: from a 2^28-element table, measured as above: 2.7578e10 (2.7616e10)
+GATHER_RATE = 2.758e10
+#: seconds a sequential loop step of eager replay costs: a turn of
+#: tracer.counted_loop whose body is one elementwise op (the host's Python
+#: and one launch), measured as above: 9.67e-6 (6.86e-6; it moves with
+#: the host)
+SCAN_OVERHEAD = 9.67e-6
+
+
+def roofline_seconds(vec: np.ndarray) -> float:
+    """max-of-terms execution-time estimate for a 6-metric vector."""
+    return max(
+        vec[I_MXU] / PEAK_FLOPS_BF16,
+        vec[I_BYTES] / HBM_BW,
+        vec[I_VPU] / VPU_RATE,
+        vec[I_TRANS] / TRANS_RATE,
+        vec[I_GATHER] / GATHER_RATE,
+        vec[I_SCAN] * SCAN_OVERHEAD,
+    )
+
+
+def comm_seconds(payload_bytes: int, n_devices: int = 2) -> float:
+    """alpha-beta estimate for a collective (ring, bidirectional link)."""
+    return 1e-6 + payload_bytes * max(n_devices - 1, 1) / (n_devices * ICI_BW)

@@ -1,7 +1,7 @@
 """Proxy replay engine + fidelity measurement (paper §3.3).
 
-Port of :mod:`repro.core.replay` (LocalSim replay; the mesh sweep and the
-noisy-replica modes are not ported yet).
+Port of :mod:`repro.core.replay` (LocalSim replay and seeded noisy
+replicas; the mesh sweep is not ported yet).
 
 ``rep`` is the run-length replay primitive used by generated code: small
 exponents unroll, large ones become a counted loop, so the walker costs a
@@ -19,7 +19,12 @@ symbols.
     reference's ``vmap``);
   * ``rank_metrics(rank)`` walks the generated code with the same cost
     walker used on the original program (cached per signature);
-  * ``fidelity(original)`` computes δ̄ = mean_{m,p} |A-B|/A (paper eq. 8).
+  * ``fidelity(original)`` computes δ̄ = mean_{m,p} |A-B|/A (paper eq. 8);
+  * ``noise=NoiseConfig(...)`` on ``run_all``, ``time_all`` and
+    ``fidelity`` replays ``n_replicas`` seeded noisy replicas of each
+    signature group, stacked on a leading replica axis in one pass (see
+    :mod:`repro_torch.core.noise`); ``fidelity`` then returns a
+    :class:`~repro_torch.core.noise.FidelityDistribution`.
 
 State lives on ``device``: ``None`` means the CUDA card, where blocks 1
 and 3 run as the hand-written kernels.  Replay is eager PyTorch, so there
@@ -41,8 +46,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import blocks
+from repro_torch.core import noise as noise_mod
 from repro_torch.core import proxy_search
-from repro_torch.core.events import Event, N_METRICS, is_comm
+from repro_torch.core.events import Event, METRIC_NAMES, N_METRICS, is_comm
+from repro_torch.core.noise import (FidelityDistribution,  # noqa: F401
+                                    NoiseConfig)
 from repro_torch.core.metrics import torch_dtype
 from repro_torch.core.tracer import counted_loop, trace_fn
 from repro_torch.device import resolve_device
@@ -107,6 +115,23 @@ class FidelityReport:
     delta: np.ndarray          # (n_metrics, n_ranks)
     comm_lossless: bool        # event-id sequences reproduced exactly
     mean: float                # δ̄, paper eq. 8
+    seed: int = 0              # replay seed provenance (deterministic: 0)
+    n_replicas: int = 1        # deterministic replay is one replica
+
+    def heatmap_csv(self) -> str:
+        lines = ["metric," + ",".join(f"rank{p}"
+                                      for p in range(self.delta.shape[1]))]
+        for m, name in enumerate(METRIC_NAMES):
+            lines.append(name + "," + ",".join(f"{v:.4f}"
+                                               for v in self.delta[m]))
+        return "\n".join(lines)
+
+    def to_csv(self) -> str:
+        """Heatmap CSV with seed/replica provenance headers, parseable by
+        :func:`repro_torch.core.noise.parse_fidelity_csv` like
+        :meth:`FidelityDistribution.to_csv`."""
+        return (f"# seed={self.seed}\n# n_replicas={self.n_replicas}\n"
+                + self.heatmap_csv())
 
 
 class ProxyProgram:
@@ -212,7 +237,8 @@ class ProxyProgram:
 
     def run_all(self, ranks: Sequence[int] | None = None, seed: int = 0,
                 comm=None, batched: bool = True,
-                per_rank_seeds: bool = False) -> dict[int, dict]:
+                per_rank_seeds: bool = False,
+                noise: NoiseConfig | None = None) -> dict[int, dict]:
         """Replay every rank; returns ``{rank: final state}``.
 
         ``batched=True`` replays one signature group per pass: with the
@@ -222,9 +248,20 @@ class ProxyProgram:
         cross-rank mutation); with ``per_rank_seeds=True`` each rank starts
         from ``seed + rank``, the group's states are stacked on a leading
         axis and replayed in one pass.  ``batched=False`` is the per-rank
-        baseline with identical results."""
+        baseline with identical results.
+
+        ``noise=NoiseConfig(...)`` replays ``n_replicas`` seeded noisy
+        replicas of each group, stacked on a leading axis in one pass
+        (``noise=None`` runs the deterministic program unchanged).  Every
+        leaf of a rank's result then carries the replica axis; ranks of a
+        group share the replicas (the noise models run-level platform
+        state, not per-rank jitter), and the
+        :data:`~repro_torch.core.noise.NOISE_COMPUTE` /
+        :data:`~repro_torch.core.noise.NOISE_COMM` leaves hold the
+        perturbed cost accumulators :meth:`fidelity` summarizes."""
         if ranks is not None:
             self._validate_ranks(ranks)
+        _check_noise(noise, batched, per_rank_seeds)
         comm = comm or LocalSim()
         out: dict[int, dict] = {}
         if not batched:
@@ -234,21 +271,43 @@ class ProxyProgram:
                     self.init_state(seed + r) if per_rank_seeds else st)
             self._sync()
             return out
-        for fn, arg, grp in self._group_work(ranks, seed, comm, per_rank_seeds):
+        for fn, arg, grp in self._group_work(ranks, seed, comm, per_rank_seeds,
+                                             noise):
             res = fn(arg)
             if per_rank_seeds:
                 for i, r in enumerate(grp):
                     out[r] = {k: v[i] for k, v in res.items()}
-            else:
+            else:   # one result for the group (noisy replicas too)
                 for r in grp:
                     out[r] = dict(res)
         self._sync()
         return out
 
-    def _group_work(self, ranks, seed: int, comm,
-                    per_rank_seeds: bool) -> list[tuple]:
+    def _noise_group_state(self, rep_rank: int, cfg: NoiseConfig,
+                           seed: int = 0) -> dict:
+        """``n_replicas`` noise-attached copies of one group's initial state,
+        stacked on a leading replica axis.  Replica keys derive only from
+        ``(cfg.seed, group representative, replica index)``."""
+        base = self.init_state(seed)
+        return stack_states([
+            noise_mod.attach(base, noise_mod.replica_key(
+                cfg.seed, rep_rank, j, self.device))
+            for j in range(cfg.n_replicas)])
+
+    def _group_work(self, ranks, seed: int, comm, per_rank_seeds: bool,
+                    noise: NoiseConfig | None = None) -> list[tuple]:
         """One ``(fn, input_state, group_ranks)`` unit per signature group —
-        the shared plan of :meth:`run_all` and :meth:`time_all`."""
+        the shared plan of :meth:`run_all` and :meth:`time_all`.  With
+        ``noise=``, a unit replays the group's stacked noisy replicas and
+        settles their draws (:func:`~repro_torch.core.noise.settle`)."""
+        if noise is not None:
+            work = []
+            for sig, grp in self.signature_groups(ranks):
+                fn = self._fn_for_rank(grp[0], comm)
+                work.append((lambda st, fn=fn: noise_mod.settle(fn(st)),
+                             self._noise_group_state(grp[0], noise, seed),
+                             grp))
+            return work
         st = None if per_rank_seeds else self.init_state(seed)
         work = []
         for sig, grp in self.signature_groups(ranks):
@@ -262,15 +321,19 @@ class ProxyProgram:
 
     def time_all(self, ranks: Sequence[int] | None = None, iters: int = 1,
                  seed: int = 0, batched: bool = True,
-                 per_rank_seeds: bool = False) -> float:
+                 per_rank_seeds: bool = False,
+                 noise: NoiseConfig | None = None) -> float:
         """Warm wall-clock seconds of one full multi-rank replay sweep, in
-        :meth:`run_all`'s modes (the states are built before the clock)."""
+        :meth:`run_all`'s modes, the noisy replicas among them (the states
+        are built before the clock)."""
         ranks = list(range(self.merged.n_ranks) if ranks is None else ranks)
         self._validate_ranks(ranks)
+        _check_noise(noise, batched, per_rank_seeds)
         comm = LocalSim()
         if batched:
             work = [(fn, arg) for fn, arg, _ in
-                    self._group_work(ranks, seed, comm, per_rank_seeds)]
+                    self._group_work(ranks, seed, comm, per_rank_seeds,
+                                     noise)]
         else:
             st = None if per_rank_seeds else self.init_state(seed)
             work = [(self._fn_for_rank(r, comm),
@@ -313,10 +376,30 @@ class ProxyProgram:
     def expand_rank_ids(self, rank: int) -> list[int]:
         return self.merged.expand_rank(rank)
 
+    def _noise_totals(self, ranks: Sequence[int], cfg: NoiseConfig
+                      ) -> tuple[dict, dict]:
+        """Executed perturbed cost totals per rank: ``(compute, comm_bytes)``
+        with ``compute[r]`` the ``(n_replicas, 6)`` float64 accumulator
+        matrix and ``comm_bytes[r]`` the ``(n_replicas,)`` perturbed
+        collective bytes.  The walker cannot see runtime randomness, so the
+        noisy path executes the replicas and reads the accumulators."""
+        pending = [(fn(arg), grp) for fn, arg, grp in
+                   self._group_work(ranks, 0, LocalSim(), False, cfg)]
+        compute: dict[int, np.ndarray] = {}
+        comm_bytes: dict[int, np.ndarray] = {}
+        for res, grp in pending:
+            acc = res[noise_mod.NOISE_COMPUTE].cpu().numpy()
+            cb = res[noise_mod.NOISE_COMM].cpu().numpy()
+            for r in grp:       # replicas are group-level; ranks share them
+                compute[r] = acc
+                comm_bytes[r] = cb
+        return compute, comm_bytes
+
     def fidelity(self, original_rank_traces: Sequence[Sequence[Event]],
                  original_rank_keys: Sequence[Sequence[str]] | None = None,
                  sample_ranks: int | None = None,
-                 batched: bool = True) -> FidelityReport:
+                 batched: bool = True, noise: NoiseConfig | None = None,
+                 ) -> "FidelityReport | FidelityDistribution":
         """Compare proxy vs original per rank (paper §3.3.1).
 
         ``original_rank_traces`` is per-rank Event lists or a columnar
@@ -324,7 +407,18 @@ class ProxyProgram:
         walker totals of the generated code against the original's compute
         totals.  Communication: the merged grammar must expand to the
         original event *key* sequence exactly (losslessness).
-        ``batched=False`` re-walks every rank (the parity baseline)."""
+        ``batched=False`` re-walks every rank (the parity baseline).
+
+        ``noise=NoiseConfig(...)`` returns a
+        :class:`~repro_torch.core.noise.FidelityDistribution` instead: the
+        proxy side becomes the *executed* perturbed-cost accumulators of
+        ``n_replicas`` seeded replicas, each replica's δ matrix computed
+        against the same original totals.  A fixed ``(seed, n_replicas)``
+        reproduces bit for bit on one device.  The σ→0 limit of the
+        executed totals tracks, but is not bit-equal to, the walker's (the
+        accumulators sum ``combo_cost`` per occurrence and charge no loop
+        bookkeeping), so the bit-parity contract binds only the
+        ``noise=None`` walker path."""
         if hasattr(original_rank_traces, "compute_totals"):
             totals = original_rank_traces.compute_totals()
             n_ranks = original_rank_traces.n_ranks
@@ -351,8 +445,30 @@ class ProxyProgram:
                 for ev in original_rank_traces[r]:
                     if not is_comm(ev):
                         a[:, col] += ev.vector
+        if noise is not None:
+            compute, comm_b = self._noise_totals(ranks, noise)
+            bn = np.stack([compute[r] for r in ranks], axis=2)
+            replica_delta = np.stack(
+                [proxy_search.rel_error_matrix(a, bn[j])
+                 for j in range(noise.n_replicas)])
+            cb = np.stack([comm_b[r] for r in ranks], axis=1)
+            return FidelityDistribution(
+                replica_delta=replica_delta, comm_bytes=cb,
+                ranks=tuple(ranks), seed=noise.seed,
+                n_replicas=noise.n_replicas, comm_lossless=lossless)
         b = np.stack([self.rank_metrics(r, use_cache=batched) for r in ranks],
                      axis=1)
         delta = proxy_search.rel_error_matrix(a, b)
         return FidelityReport(delta=delta, comm_lossless=lossless,
                               mean=float(delta.mean()))
+
+
+def _check_noise(noise: NoiseConfig | None, batched: bool,
+                 per_rank_seeds: bool) -> None:
+    """The reference's guards: the noisy replicas own the stacked axis."""
+    if noise is not None and per_rank_seeds:
+        raise ValueError("noise= and per_rank_seeds are mutually "
+                         "exclusive (both own the stacked batch axis)")
+    if noise is not None and not batched:
+        raise ValueError("noise= requires the batched replay path "
+                         "(replicas ride the stacked group axis)")

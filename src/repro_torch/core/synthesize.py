@@ -33,6 +33,9 @@ import numpy as np
 from repro_torch.core import noise as noise_mod
 from repro_torch.core import proxy_search
 from repro_torch.core.codegen import generate_source
+from repro_torch.core.codegen_reference import (
+    generate_source as generate_unrolled,
+)
 from repro_torch.core.events import Event, is_comm
 from repro_torch.core.grammar import Grammar, TerminalTable
 from repro_torch.core.interproc import MergedProgram
@@ -56,12 +59,17 @@ class SynthesisResult:
     def source(self) -> str:
         return self.proxy.source
 
-    def fidelity(self, sample_ranks: int | None = 16, batched: bool = True):
-        """δ̄ report against the columnar store (paper eq. 8)."""
+    def fidelity(self, sample_ranks: int | None = 16, batched: bool = True,
+                 noise=None):
+        """δ̄ report against the columnar store (paper eq. 8);
+        ``noise=NoiseConfig(...)`` returns the seeded
+        :class:`~repro_torch.core.noise.FidelityDistribution` instead (see
+        :meth:`repro_torch.core.replay.ProxyProgram.fidelity`)."""
         keys = [[g.table[i].key() for i in ids]
                 for g, ids in zip(self.grammars, self.rank_ids)]
         return self.proxy.fidelity(self.store, keys,
-                                   sample_ranks=sample_ranks, batched=batched)
+                                   sample_ranks=sample_ranks, batched=batched,
+                                   noise=noise)
 
 
 def compress_rank_traces(rank_traces: Sequence[Sequence[Event]],
@@ -109,14 +117,27 @@ def _fit_terminals(table: TerminalTable, reps: dict[int, np.ndarray],
 def _assemble_result(store: TraceStore, grammars, merged, rank_ids, fits,
                      combos, solver: str, name: str,
                      axis_sizes: dict[str, int], count_scale: float,
-                     out_dir, noise_model: "noise_mod.NoiseModel | None" = None,
+                     out_dir, codegen: str = "table",
+                     noise_model: "noise_mod.NoiseModel | None" = None,
                      device=None) -> SynthesisResult:
-    """Program-table codegen + module load + stats (the reference's
-    unrolled emitter is not ported)."""
+    """Codegen + module load + stats.
+
+    ``codegen`` picks the emitter: ``"table"`` (default) is the grammar-
+    compiled program-table flavor; ``"unrolled"`` the per-symbol reference
+    oracle (:mod:`repro_torch.core.codegen_reference`) — the same δ̄ and
+    comm sequences.  ``noise_model``'s per-terminal ``(σ, shift)`` pairs
+    land in the module's ``NOISE_MODELS`` table (both flavors)."""
+    if codegen == "table":
+        emit = generate_source
+    elif codegen == "unrolled":
+        emit = generate_unrolled
+    else:
+        raise ValueError(f"unknown codegen flavor: {codegen!r} "
+                         "(expected 'table' or 'unrolled')")
     noise_models = (noise_model.terminal_params(merged.table.events)
                     if noise_model is not None else None)
-    source = generate_source(merged, combos, name, axis_sizes,
-                             count_scale=count_scale, noise_models=noise_models)
+    source = emit(merged, combos, name, axis_sizes,
+                  count_scale=count_scale, noise_models=noise_models)
     module = load_module(source, name=f"{name}_mod", out_dir=out_dir)
     proxy = ProxyProgram(source, module, merged, combos, axis_sizes,
                          device=device)
@@ -135,7 +156,7 @@ def _assemble_result(store: TraceStore, grammars, merged, rank_ids, fits,
         "grammar_bytes": grammar_bytes,
         "compression_ratio": trace_bytes / max(grammar_bytes, 1),
         "source_lines": source.count("\n") + 1,
-        "codegen": "table",
+        "codegen": codegen,
         "solver": solver,
         "mean_fit_rel_err": float(np.mean(fit_errs)) if fit_errs else 0.0,
         "max_fit_rel_err": float(np.max(fit_errs)) if fit_errs else 0.0,
@@ -155,7 +176,8 @@ def synthesize(fn: Callable | None = None, *args,
                solver: str = "auto",
                count_scale: float = 1.0,
                out_dir=None,
-               device=None) -> SynthesisResult:
+               device=None,
+               codegen: str = "table") -> SynthesisResult:
     """Synthesize a proxy-app from a per-rank program ``fn(*args)``, from
     pre-recorded traces, or from a saved columnar :class:`TraceStore`
     (``TraceStore.load(path)``: the reference's ``.npz`` format, unchanged).
@@ -166,7 +188,10 @@ def synthesize(fn: Callable | None = None, *args,
     compute terminals and the batched PGD program above it.
     ``count_scale`` < 1 shrinks the fitted block counts proportionally.
     ``device=None`` means the CUDA card and raises without one; pass
-    ``device="cpu"`` to run on the CPU.
+    ``device="cpu"`` to run on the CPU.  ``codegen="table"`` (default)
+    emits the grammar-compiled program-table module, ``"unrolled"`` the
+    per-symbol reference oracle: both replay the same program with
+    bit-identical δ̄ and comm sequences.
     """
     device = resolve_device(device)
     if store is None:
@@ -187,4 +212,5 @@ def synthesize(fn: Callable | None = None, *args,
     noise_model = noise_mod.calibrate(store, rel_tol=rel_tol)
     return _assemble_result(store, grammars, merged, rank_ids, fits, combos,
                             solver, name, axis_sizes, count_scale, out_dir,
-                            noise_model=noise_model, device=device)
+                            codegen=codegen, noise_model=noise_model,
+                            device=device)

@@ -1,8 +1,10 @@
 """Decoder-only LM assembly: the training loss, prefill and decode for the
-dense and SSM families.
+dense, SSM, MoE and vision-language families.
 
-The port of ``src/repro/models/transformer.py`` for layer kinds ``g``
-(global attention), ``l`` (sliding window) and ``m`` (Mamba2).  Parameters
+The port of ``src/repro/models/transformer.py`` for every layer kind of the
+zoo: ``g`` and ``s`` (global causal self-attention), ``l`` (sliding
+window), ``m`` (Mamba2) and ``x`` (the VLM's image layers: self-attention,
+then cross-attention to the vision states).  Parameters
 and caches keep the reference's stacked layout: layers are grouped into the
 config's repeating unit, every leaf of ``params["unit"]`` has a leading
 ``n_units`` dim, and remainder layers sit in the ``rest`` tuple.  Where the
@@ -15,8 +17,13 @@ step a unit).  ``cfg.remat`` checkpoints each unit
 reference's ``nothing_saveable`` policy).
 MoE layers (:mod:`repro_torch.models.moe`) take the layer's index, as in
 the reference, and ``backbone`` sums their balance loss over the layers.
-Cross-attention inside the LM (kind ``x``, the VLM) waits for a later
-slice of the port and raises.
+The VLM's vision frontend is the reference's stub: precomputed patch
+embeddings (b, n_vision_tokens, d) under ``vision_embeds``, cast to the
+config's dtype and normed by ``vision_norm`` (:func:`vision_states`); an
+``x`` layer's prefill caches the cross K/V of those states beside its self
+cache, and decode reads them back.  As in the reference, an ``x`` layer's
+prefill projects the vision states to K/V twice (inside
+``cross_attention`` and for the cache).
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from repro_torch.models.layers import (
     rms_norm, torch_dtype, unembed,
 )
 
-PORTED_KINDS = ("g", "l", "m")
+PORTED_KINDS = ("g", "l", "m", "s", "x")
 
 
 def _lcm(a: int, b: int) -> int:
@@ -44,12 +51,13 @@ def _lcm(a: int, b: int) -> int:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
+    """Raise for a layer kind the port does not know (every kind of the
+    reference's zoo is ported)."""
     bad = sorted(set(cfg.layer_kinds()) - set(PORTED_KINDS))
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {bad} are not ported yet (the VLM's "
-            "cross-attention layers: ROADMAP, queue 1, item 4)")
+            f"{cfg.name}: unknown layer kinds {bad} (the port runs "
+            f"{list(PORTED_KINDS)})")
 
 
 def unit_len(cfg: ArchConfig) -> int:
@@ -70,6 +78,10 @@ def _layer_param(cfg: ArchConfig, kind: str, li: int) -> dict:
     else:
         p["attn"] = A.attn_params(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                   cfg.qk_norm, dt)
+    if kind == "x":
+        p["xattn"] = A.attn_params(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                   cfg.qk_norm, dt)
+        p["ln_x"] = Param((d,), ("embed",), scale=0.0, dtype="float32")
     if cfg.is_moe_layer(li):
         p["ln2"] = Param((d,), ("embed",), scale=0.0, dtype="float32")
         p["moe"] = M.moe_params(d, cfg.n_experts, cfg.d_ff_expert,
@@ -93,7 +105,7 @@ def init_lm(cfg: ArchConfig) -> dict:
     u = unit_len(cfg)
     n_units = cfg.n_layers // u
     kinds = cfg.layer_kinds()
-    return {
+    params = {
         "embed": embed_params(cfg.padded_vocab, cfg.d_model, cfg.dtype),
         "final_norm": Param((cfg.d_model,), ("embed",), scale=0.0,
                             dtype="float32"),
@@ -103,6 +115,10 @@ def init_lm(cfg: ArchConfig) -> dict:
                                    n_units * u + j)
                       for j in range(cfg.n_layers % u)),
     }
+    if cfg.n_vision_tokens:
+        params["vision_norm"] = Param((cfg.d_model,), ("embed",), scale=0.0,
+                                      dtype="float32")
+    return params
 
 
 def _layers(cfg: ArchConfig, tree: dict):
@@ -153,6 +169,27 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
+def vision_states(params: dict, batch: dict, cfg: ArchConfig):
+    """The VLM's normed vision states (b, n_vision_tokens, d) from the
+    batch's ``vision_embeds``, or None (no vision tokens, or none given).
+    The embeddings are cast to the config's dtype first, as the
+    encoder-decoder's frames are (``encdec.encode``): the data pipeline
+    draws them in f32, and a bf16 model's projections take bf16 (a no-op
+    in f32 and for the serve engine's embeddings)."""
+    if not cfg.n_vision_tokens or "vision_embeds" not in batch:
+        return None
+    v = batch["vision_embeds"].to(torch_dtype(cfg.dtype))
+    return rms_norm(v, params["vision_norm"])
+
+
+def _cross(cfg: ArchConfig, p: dict, x: torch.Tensor, vision, kv=None):
+    """An ``x`` layer's cross-attention half: x + its cross-attention to
+    the vision states (or to the cached ``kv``)."""
+    hx = rms_norm(x, p["ln_x"])
+    return x + A.cross_attention(p["xattn"], hx, vision, n_heads=cfg.n_heads,
+                                 n_kv=cfg.n_kv_heads, head_dim=cfg.hd, kv=kv)
+
+
 def _ffn(cfg: ArchConfig, li: int, p: dict, x: torch.Tensor):
     """The layer's feed-forward half: (x, MoE aux loss or None)."""
     if cfg.is_moe_layer(li):
@@ -165,7 +202,7 @@ def _ffn(cfg: ArchConfig, li: int, p: dict, x: torch.Tensor):
 
 
 def _apply_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
-                 x: torch.Tensor, positions: torch.Tensor):
+                 x: torch.Tensor, positions: torch.Tensor, vision=None):
     """One layer of the training forward (no cache): (x, aux or None)."""
     h = rms_norm(x, p["ln1"])
     if kind == "m":
@@ -177,15 +214,20 @@ def _apply_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
         mix, _ = A.attention(p["attn"], h, positions, n_heads=cfg.n_heads,
                              n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                              theta=cfg.rope_theta, window=win, causal=True)
-    return _ffn(cfg, li, p, x + mix)
+    x = x + mix
+    if kind == "x":
+        x = _cross(cfg, p, x, vision)
+    return _ffn(cfg, li, p, x)
 
 
-def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig):
+def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, vision=None):
     """Embedded input (b, s, d) -> (final hidden states (b, s, d), aux).
 
     aux is the MoE balance loss of the reference, summed over the MoE
     layers (0 without any).  It rides in the unit loop's carry, inside the
-    checkpointed unit, as in the reference's scan."""
+    checkpointed unit, as in the reference's scan.  ``vision`` is the VLM's
+    vision states (:func:`vision_states`), which every ``x`` layer
+    attends to."""
     check_ported(cfg)
     u = unit_len(cfg)
     n_units = cfg.n_layers // u
@@ -196,31 +238,34 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig):
     def add(aux, a):
         return aux if a is None else aux + a
 
-    def unit_body(h, aux, unit_p):
+    def unit_body(h, aux, unit_p, vis):
         for j in range(u):
-            h, a = _apply_layer(cfg, kinds[j], j, unit_p[j], h, positions)
+            h, a = _apply_layer(cfg, kinds[j], j, unit_p[j], h, positions,
+                                vis)
             aux = add(aux, a)
         return h, aux
 
     def body(carry, unit_p):
         if cfg.remat:
-            return checkpoint(unit_body, *carry, unit_p, use_reentrant=False)
-        return unit_body(*carry, unit_p)
+            return checkpoint(unit_body, *carry, unit_p, vision,
+                              use_reentrant=False)
+        return unit_body(*carry, unit_p, vision)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = scan_loop(n_units, body, (x, aux), xs=params["unit"])
     for j, p in enumerate(params["rest"]):
         li = n_units * u + j
-        x, a = _apply_layer(cfg, kinds[li], li, p, x, positions)
+        x, a = _apply_layer(cfg, kinds[li], li, p, x, positions, vision)
         aux = add(aux, a)
     return rms_norm(x, params["final_norm"]), aux
 
 
 def lm_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Causal-LM CE loss (+ 0.01 x the MoE aux loss): batch =
-    {tokens (b, s), labels (b, s)}.  Builds no decode cache."""
+    {tokens (b, s), labels (b, s)[, vision_embeds (b, n_vision_tokens, d)]}.
+    Builds no decode cache."""
     x = embed_inputs(params, batch, cfg)
-    h, aux = backbone(params, x, cfg)
+    h, aux = backbone(params, x, cfg, vision_states(params, batch, cfg))
     loss = chunked_loss(h, params["embed"], batch["labels"], cfg.loss_chunk)
     return loss + 0.01 * aux
 
@@ -250,8 +295,15 @@ def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int, device) -> dict:
                     for k, v in c.items()}
         shape = lead + (batch, _cache_len(cfg, kind, seq_len),
                         cfg.n_kv_heads, cfg.hd)
-        return A.KVCache(torch.zeros(shape, dtype=dt, device=device),
-                         torch.zeros(shape, dtype=dt, device=device))
+        kv = A.KVCache(torch.zeros(shape, dtype=dt, device=device),
+                       torch.zeros(shape, dtype=dt, device=device))
+        if kind == "x":
+            xshape = lead + (batch, cfg.n_vision_tokens, cfg.n_kv_heads,
+                             cfg.hd)
+            return {"self": kv,
+                    "xk": torch.zeros(xshape, dtype=dt, device=device),
+                    "xv": torch.zeros(xshape, dtype=dt, device=device)}
+        return kv
 
     return {"unit": tuple(one(kinds[j], (n_units,)) for j in range(u)),
             "rest": tuple(one(kinds[n_units * u + j], ())
@@ -263,13 +315,16 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
 
     Returns (last-position logits (b, vocab), cache).  Attention caches hold
     the full (or window-tail, in ring order) K/V in ``cfg.dtype``; SSM
-    caches hold the final state and the conv tail.  The cache has the
-    reference's stacked layout: the unit scan's ys."""
+    caches hold the final state and the conv tail; an ``x`` layer's cache
+    is ``{"self": its KV cache, "xk", "xv": the cross K/V of the vision
+    states}``.  The cache has the reference's stacked layout: the unit
+    scan's ys."""
     check_ported(cfg)
     u = unit_len(cfg)
     n_units = cfg.n_layers // u
     kinds = cfg.layer_kinds()
     x = embed_inputs(params, batch, cfg)
+    vision = vision_states(params, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     dt = torch_dtype(cfg.dtype)
@@ -295,7 +350,12 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
                 k = torch.roll(k[:, s - cl:], s % cl, dims=1)
                 v = torch.roll(v[:, s - cl:], s % cl, dims=1)
             cache = A.KVCache(k.to(dt), v.to(dt))
-        return _ffn(cfg, li, p, h + mix)[0], cache
+        h = h + mix
+        if kind == "x":
+            h = _cross(cfg, p, h, vision)
+            ck, cv = A.cross_kv(p["xattn"], vision, cfg.n_kv_heads, cfg.hd)
+            cache = {"self": cache, "xk": ck.to(dt), "xv": cv.to(dt)}
+        return _ffn(cfg, li, p, h)[0], cache
 
     def unit_body(h, unit_p):
         caches = []
@@ -324,6 +384,12 @@ def _decode_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
                                 n_state=cfg.ssm_state,
                                 n_groups=cfg.ssm_groups,
                                 expand=cfg.ssm_expand)
+    elif kind == "x":
+        mix, selfc = A.decode_attention(p["attn"], h, c["self"], pos,
+                                        n_heads=cfg.n_heads,
+                                        n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                                        theta=cfg.rope_theta)
+        new = {"self": selfc, "xk": c["xk"], "xv": c["xv"]}
     else:
         win = cfg.window if kind == "l" and cfg.window else None
         mix, new = A.decode_attention(p["attn"], h, c, pos,
@@ -331,12 +397,16 @@ def _decode_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
                                       n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                                       theta=cfg.rope_theta, window=win)
     _write_back(c, new)
-    return _ffn(cfg, li, p, x + mix)[0]
+    x = x + mix
+    if kind == "x":
+        x = _cross(cfg, p, x, None, kv=(c["xk"], c["xv"]))
+    return _ffn(cfg, li, p, x)[0]
 
 
 def lm_decode_step(params: dict, cache: dict, batch: dict, pos: int,
                    cfg: ArchConfig):
-    """One new token against the cache.  batch = {tokens (b,1)}.
+    """One new token against the cache.  batch = {tokens (b,1)}; an ``x``
+    layer reads the vision states' K/V from its cache.
 
     Returns (logits (b, vocab), cache); the cache's buffers are updated in
     place (the reference returns new ones)."""

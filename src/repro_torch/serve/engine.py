@@ -62,9 +62,14 @@ class ServeEngine:
         self._decode = build_forward(cfg, "decode")
 
     def _extras(self, batch_size: int) -> dict:
-        """The modality stubs the reference's engine feeds: zero audio
-        frames (b, n_audio_frames, d) in the config's dtype."""
+        """The modality stubs the reference's engine feeds, zeros in the
+        config's dtype: the VLM's vision embeddings (b, n_vision_tokens, d)
+        and the encoder-decoder's audio frames (b, n_audio_frames, d)."""
         out = {}
+        if self.cfg.n_vision_tokens:
+            out["vision_embeds"] = torch.zeros(
+                (batch_size, self.cfg.n_vision_tokens, self.cfg.d_model),
+                dtype=torch_dtype(self.cfg.dtype), device=self.device)
         if self.cfg.n_audio_frames:
             out["audio_frames"] = torch.zeros(
                 (batch_size, self.cfg.n_audio_frames, self.cfg.d_model),

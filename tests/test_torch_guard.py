@@ -166,13 +166,56 @@ def test_synthesize_from_a_function_is_not_ported_yet():
 
 
 def test_noise_replay_is_not_ported_yet(tmp_path):
+    """Seeded noise replay is ported (slice 9): without a noise key
+    ``perturb`` returns the state itself; with one, each occurrence
+    consumes one draw (on the state's tape, nothing launched), and
+    ``settle`` draws them into the accumulators."""
     from repro_torch.core import noise
     res = synthesize(store=_store(), device="cpu", out_dir=tmp_path)
     st = res.proxy.init_state(0)
-    assert noise.perturb(st, noise.LoweredNoise(0.1, 0.0, None, 4.0)) is st
-    st[noise.NOISE_KEY] = torch.zeros(2)
-    with pytest.raises(NotImplementedError):
-        noise.perturb(st, noise.LoweredNoise(0.1, 0.0, None, 4.0))
+    nz = noise.LoweredNoise(0.1, 0.0, None, 4.0)
+    assert noise.perturb(st, nz) is st
+    st = noise.attach(st, noise.replica_key(3, 0, 0))
+    got = noise.perturb(noise.perturb(st, nz), nz)
+    assert isinstance(got[noise.NOISE_KEY], noise.NoiseTape)
+    assert got[noise.NOISE_KEY].ids == [0, 0]
+    assert torch.is_tensor(st[noise.NOISE_KEY])     # the input is untouched
+    done = noise.settle(got)
+    assert int(done[noise.NOISE_KEY][2]) == 2
+    assert 4.0 < float(done[noise.NOISE_COMM]) < 12.0
+
+
+def test_new_modules_and_the_unrolled_proxy_import_only_the_port(tmp_path):
+    """The baselines, the unrolled emitter and noise import with JAX
+    unimportable and pull in nothing of ``repro``; a module the unrolled
+    emitter writes imports only ``repro_torch`` and replays without JAX."""
+    code = (
+        "import ast, sys\n"
+        "sys.modules['jax'] = None\n"
+        "import repro_torch.core.baselines, repro_torch.core.codegen_reference\n"
+        "from repro_torch.core.synthesize import synthesize\n"
+        "from repro_torch.core.trace_ir import TraceStore\n"
+        "from repro_torch.workloads import synthetic_rank_traces\n"
+        "st = TraceStore.from_rank_traces(synthetic_rank_traces(4, reps=4),\n"
+        "                                 {'x': 4})\n"
+        f"res = synthesize(store=st, device='cpu', codegen='unrolled',\n"
+        f"                 out_dir={str(tmp_path)!r})\n"
+        "res.proxy.run_all()\n"
+        "tree = ast.parse(res.source)\n"
+        "names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)\n"
+        "         for a in n.names]\n"
+        "names += [n.module for n in ast.walk(tree)\n"
+        "          if isinstance(n, ast.ImportFrom)]\n"
+        "assert names and all(m.startswith('repro_torch.') for m in names), names\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "             and (m == 'repro' or m.startswith(('repro.', 'jax'))))\n"
+        "assert not bad, bad\n"
+        "print(res.stats['codegen'])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "unrolled"
 
 
 def test_serve_entry_points_default_to_cuda_and_raise_without_it(no_cuda):

@@ -231,6 +231,18 @@ REF_COSTS = {
                                       2176],
     'whisper-large-v3 full decode': [14433648640, 2859400844, 21241436478,
                                      24830404, 2684354560, 32],
+    'llama-3.2-vision-90b smoke train': [22609920, 584623, 13303200, 14518,
+                                         0, 2],
+    'llama-3.2-vision-90b smoke prefill': [6750208, 137318, 3554004, 5926,
+                                           0, 1],
+    'llama-3.2-vision-90b smoke decode': [987136, 44876, 1910564, 1774,
+                                          20480, 1],
+    'llama-3.2-vision-90b full prefill': [1520432196878336, 959796433228,
+                                          11185103259754, 129249307396,
+                                          1600, 2900],
+    'llama-3.2-vision-90b full decode': [825961742336, 8301169452,
+                                         241409605262, 218028524,
+                                         6710886400, 20],
 }
 #: the port's, at its logged values (ROADMAP §3)
 PORT_COSTS = {
@@ -271,6 +283,17 @@ PORT_COSTS = {
                                       2176],
     'whisper-large-v3 full decode': [14433648640, 175045704, 15881296314,
                                      24830404, 0, 32],
+    'llama-3.2-vision-90b smoke train': [22609920, 589721, 15444824, 14710,
+                                         8208, 2],
+    'llama-3.2-vision-90b smoke prefill': [6750208, 137110, 3548144, 5926,
+                                           0, 1],
+    'llama-3.2-vision-90b smoke decode': [987136, 24342, 1847236, 1774, 0,
+                                          1],
+    'llama-3.2-vision-90b full prefill': [1520432196878336, 959459072072,
+                                          11185079378962, 129249307396,
+                                          1600, 2900],
+    'llama-3.2-vision-90b full decode': [825961742336, 1590281568,
+                                         227999566554, 218028524, 0, 20],
 }
 #: columns exactly equal: tensor FLOPs, transcendentals and scan steps of
 #: every prefill and decode; the train rows' tensor FLOPs and scan steps

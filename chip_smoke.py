@@ -64,7 +64,21 @@ paths on the card, checking that each went through its kernels:
   and 30 of its 100 layers (``SERVE_DEPTH``; 30 self and 6 cross
   ``flash_fwd`` a generate), with its consistency on random vision
   embeddings; the VLM smoke config on the card against the CPU (serve and
-  a training step).
+  a training step);
+- slice 10: the corpus tier (:func:`phase_corpus`).  The five zoo scenarios
+  at 64 ranks streamed into a ``CorpusStore`` (``ingest_scenarios``) with
+  the 64-rank synthetic trace; ``synthesize_corpus`` of the six in one
+  batch, its one PGD fit on the card (a target alone against the same
+  target in a batch of 64, the card's fits against the CPU's), a replay of
+  every proxy (the proxy-block launches the tables predict) and
+  ``report()``; the store ingested again by a forked pool of 4 after the
+  card is initialised (bit-identical to serial); synthesis from the store
+  (bit-identical to batch), unchanged (no solver call) and after a removal
+  (bit-identical to a from-scratch synthesis of the survivors); a
+  ``ProxyService`` over the store (single and batched queries, a refresh
+  equal to a rebuilt service, ``predict_all`` over the port's cards, on
+  the H100 against the walker); and the chaos sweep of every fault point
+  of the store (``repro_torch.core.chaos``).
 
 Then it times every kernel against its plain version, its bound and, where
 one PyTorch call computes the same function, that call; for the two
@@ -132,7 +146,7 @@ SERVE_NEW = 32
 #: percent.  Mamba2's 64 layers of random weights amplify it until the two
 #: sets of logits have little left in common (on an H100: 0.455 of
 #: max|logits|), and the reference's own model does the same: at 64 layers
-#: of d 128 it drifts 0.442 (tests/test_torch_serve.py::test_bf16_drift_
+#: of d 128 it drifts 0.442 (tests/test_torch_serve_drift.py::test_bf16_drift_
 #: is_the_reference_models[64], which also holds the port's drift within a
 #: factor 2 of it).  So the whole Mamba2 model is held in bf16 to twice the
 #: reference's figure, which a fault as large as a lost state fails (the
@@ -185,6 +199,10 @@ SMOKE_PROMPTS = {"llama3.2-3b": 1024, "mamba2-2.7b": 256, "gemma3-4b": 1024,
                  "llama-3.2-vision-90b": 1024}
 
 
+#: the card's name and power limit, as nvidia-smi gives them (phase_device)
+CARD = "not read"
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -214,9 +232,11 @@ def phase_device() -> dict:
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
     print(f"device: {name} (count {count}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(CARD)
     return {"platform": "gpu", "kind": name, "count": count}
 
 
@@ -940,6 +960,334 @@ def phase_trace(dev) -> dict:
             if not all(math.isfinite(v) for v in vec) or vec[0] <= 0:
                 fail(f"walking {arch} {kind}: cost {vec}")
     return {"targets": rows, "costs": costs}
+
+
+#: slice 10: the corpus tier at the paper's 64-rank scale (the zoo's five
+#: scenarios at their default steps, and the 64-rank synthetic trace)
+CORPUS_RANKS = 64
+#: per-scenario delta_bar, the card's corpus fit against the CPU's where
+#: a fitted count differs (the reference's own drift allowance,
+#: tests/test_fidelity_regression.py:48); equal counts give equal
+#: delta_bar, held to 1e-12
+CORPUS_DRIFT_ATOL = 0.05
+CORPUS_QUERIES = 20
+#: predict_profile on the h100 against the walker's rank totals through
+#: HloCost.from_metric_vector: the walker also charges the element ops and
+#: bytes of a counted loop's bookkeeping, which the predictor leaves out by
+#: design (scan steps are not hardware work); the reference's predictor
+#: does the same, and on the same store its gap is the port's to the bit
+#: (tests/test_torch_proxy_service.py, which pins flash-ring's at 8 ranks:
+#: 2.08e-5 of a rank's bytes); 0 where no loop is counted.  chip_smoke
+#: prints the corpus's largest as h100_walker_rel_gap.
+CORPUS_WALKER_GAP = 1e-4
+
+
+def store_state(cs) -> dict:
+    """A CorpusStore's state: names, content hashes, cluster assignments,
+    representatives, manifest fingerprint."""
+    ids, reps = cs.cluster_assignments()
+    return {"names": list(cs.names),
+            "hashes": {n: cs.content_hash(n) for n in cs.names},
+            "ids": {n: ids[n].tobytes() for n in cs.names},
+            "reps": {int(k): v.tobytes() for k, v in reps.items()},
+            "fingerprint": cs.manifest_fingerprint()}
+
+
+def corpus_deltas(corp) -> dict:
+    return {n: r.fidelity(sample_ranks=None).mean
+            for n, r in corp.results.items()}
+
+
+def corpus_launches(corp) -> tuple[dict, dict]:
+    """mxu_iter / stream_iter launches of one run_all of every scenario's
+    proxy, counted and as the fitted tables predict."""
+    want = {"mxu_iter": 0, "stream_iter": 0}
+    reset_counts()
+    for res in corp.results.values():
+        res.proxy.run_all()
+        for k, v in predicted_launches(res).items():
+            want[k] += v
+    torch.cuda.synchronize()
+    got = read_counts()
+    return {k: got[k] for k in want}, want
+
+
+def pgd_targets(corp):
+    """The corpus's compute-terminal targets, one row each."""
+    import numpy as np
+    from repro_torch.core.events import is_comm
+    return np.stack([corp.reps[ev.cluster_id] if ev.cluster_id >= 0
+                     else ev.vector for ev in corp.table.events
+                     if not is_comm(ev)])
+
+
+def check_pgd(dev, targets) -> dict:
+    """The corpus's one PGD dispatch on the card: its time, its kernel
+    launches (torch.profiler), a target alone against the same target in a
+    batch of 64, and the card's fits against the CPU's."""
+    import numpy as np
+    from repro_torch.core import blocks, proxy_search
+    batch = np.concatenate([targets] * (64 // len(targets) + 1))[:64]
+    gpu = proxy_search.fit_batch(batch, device=dev)
+    cpu = proxy_search.fit_batch(batch, device="cpu")
+    for i in range(len(targets)):
+        one = proxy_search.fit_batch(batch[i:i + 1], device=dev)[0]
+        if (list(one.x) != list(gpu[i].x) or one.unroll != gpu[i].unroll
+                or list(gpu[i].x) != list(cpu[i].x)):
+            fail(f"pgd target {i} {list(batch[i])}: alone {list(one.x)} "
+                 f"u{one.unroll}, in 64 {list(gpu[i].x)} u{gpu[i].unroll}, "
+                 f"cpu {list(cpu[i].x)} u{cpu[i].unroll}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        proxy_search.fit_batch(targets, device=dev)
+        torch.cuda.synchronize()
+    rows = kernel_times(prof)
+    t0 = time.perf_counter()
+    proxy_search.fit_batch(targets, device=dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    b = blocks.calibration_matrix()
+    bss = np.stack([proxy_search.substituted_matrix(b, u)
+                    for u in proxy_search._UNROLLS])
+    t0 = time.perf_counter()
+    proxy_search._pgd_grid(
+        np.repeat(targets, len(bss), axis=0),
+        np.tile(bss, (len(targets), 1, 1)), device=dev)
+    grid_ms = 1e3 * (time.perf_counter() - t0)
+    return {"targets": len(targets), "fit_batch_ms": ms,
+            "pgd_grid_ms": grid_ms,
+            "kernel_launches": sum(r[1] for r in rows),
+            "device_ms": sum(r[0] for r in rows) / 1e3,
+            "batch_invariant_and_cpu_equal": True}
+
+
+def phase_corpus(dev) -> dict:
+    """Slice 10: the corpus tier on the card.
+
+    Ingests the five zoo scenarios at 64 ranks (``ingest_scenarios``) and
+    the 64-rank synthetic trace into a CorpusStore; synthesizes the corpus
+    in one batch (one PGD fit on the card for every compute terminal),
+    replays every proxy (the proxy-block launches the tables predict) and
+    reports; holds the card's fits to the CPU's; builds the store again
+    with a forked pool of 4 (bit-identical to serial); synthesizes from
+    the store (bit-identical to batch), unchanged (no solver call), and
+    after a removal (bit-identical to batch over the survivors); serves
+    queries from a ProxyService (batched equals sequential; a refreshed
+    service equals a rebuilt one), predicts each proxy on the port's cards
+    (on the H100 within CORPUS_WALKER_GAP of the walker's); and sweeps
+    every fault point of the store (recovery and survivor parity)."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    from repro_torch.configs.registry import ingest_scenarios
+    from repro_torch.core import chaos
+    from repro_torch.core.corpus_store import CorpusStore
+    from repro_torch.core.portability import CHIPS, predict_all
+    from repro_torch.core.synthesize import synthesize_corpus
+    from repro_torch.core.trace_ir import TraceStore
+    from repro_torch.launch.hlo_cost import HloCost
+    from repro_torch.serve.proxy_service import ProxyService
+    from repro_torch.workloads import synthetic_rank_traces
+
+    work = ROOT / "build" / "chip_smoke_corpus"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {}
+
+    # the store, streamed in: five scenarios built and appended one at a
+    # time, then the synthetic trace as a (name, TraceStore) pair
+    t0 = time.perf_counter()
+    cs = CorpusStore(work / "serial")
+    ingest_scenarios(cs, n_ranks=CORPUS_RANKS)
+    cs.add_scenario(f"halo-{CORPUS_RANKS}", TraceStore.from_rank_traces(
+        synthetic_rank_traces(CORPUS_RANKS), {"x": CORPUS_RANKS}))
+    out["build_and_ingest_ms"] = 1e3 * (time.perf_counter() - t0)
+    names = cs.names
+    stores = {n: cs.load_scenario(n) for n in names}
+    items = sorted(stores.items())
+    out["events"] = {n: stores[n].n_events for n in names}
+    for workers, key in ((0, "ingest_serial_ms"), (4, "ingest_parallel_ms")):
+        t0 = time.perf_counter()
+        other = CorpusStore(work / f"workers{workers}")
+        other.add_scenarios(items, n_workers=workers)
+        out[key] = 1e3 * (time.perf_counter() - t0)
+        if store_state(other) != store_state(cs):
+            fail(f"corpus: ingest with {workers} workers differs from the "
+                 "streamed store")
+    print(f"corpus on {CARD}: {len(names)} scenarios, "
+          f"{sum(out['events'].values())} events: {out['events']}; build and "
+          f"ingest {out['build_and_ingest_ms']:.1f} ms, ingest again serial "
+          f"{out['ingest_serial_ms']:.1f} ms, 4 workers "
+          f"{out['ingest_parallel_ms']:.1f} ms")
+
+    # 1. batch synthesis in manifest order, replay, report
+    pairs = [(n, stores[n]) for n in names]
+    t0 = time.perf_counter()
+    corp = synthesize_corpus(pairs, device=dev, out_dir=work / "batch")
+    out["batch_ms"] = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    got, want = corpus_launches(corp)
+    out["run_all_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["launches"], out["predicted_launches"] = got, want
+    if got != want or not all(got.values()):
+        fail(f"corpus: launches {got} != predicted {want}")
+    launched = {k: v for k, v in read_counts().items()
+                if k not in want and v}
+    if launched:
+        fail(f"corpus: a model kernel launched in replay: {launched}")
+    t0 = time.perf_counter()
+    rep = corp.report()
+    out["report_ms"] = 1e3 * (time.perf_counter() - t0)
+    deltas = {n: r["mean_delta"] for n, r in rep["scenarios"].items()}
+    out["delta_bar"] = deltas
+    out["stats"] = corp.stats
+    if not rep["all_comm_lossless"]:
+        fail("corpus: comm sequences not lossless")
+    if corp.stats["n_solver_calls"] != 1:
+        fail(f"corpus: {corp.stats['n_solver_calls']} solver calls")
+    print(f"corpus batch on {CARD}: synthesize_corpus "
+          f"{out['batch_ms']:.1f} ms, run_all of every proxy "
+          f"{out['run_all_ms']:.1f} ms, report {out['report_ms']:.1f} ms, "
+          f"launches {json.dumps(got)} as predicted")
+    print(f"corpus batch stats: {json.dumps(corp.stats)}")
+    print(f"corpus delta_bar: {json.dumps(deltas)}")
+
+    # 2. the card's fits against the CPU's
+    cpu = synthesize_corpus(pairs, device="cpu", out_dir=work / "cpu")
+    diff = [g for g in corp.fits
+            if list(corp.fits[g].x) != list(cpu.fits[g].x)
+            or corp.fits[g].unroll != cpu.fits[g].unroll]
+    for g in diff:
+        print(f"corpus fit differs: terminal {g} target "
+              f"{list(corp.fits[g].target)}: card {list(corp.fits[g].x)} "
+              f"u{corp.fits[g].unroll}, cpu {list(cpu.fits[g].x)} "
+              f"u{cpu.fits[g].unroll}")
+    cpu_deltas = {n: r["mean_delta"] for n, r in
+                  cpu.report()["scenarios"].items()}
+    tol = CORPUS_DRIFT_ATOL if diff else TRACE_DELTA_ATOL
+    for n in names:
+        if abs(deltas[n] - cpu_deltas[n]) > tol:
+            fail(f"corpus {n}: delta_bar {deltas[n]!r} on the card, "
+                 f"{cpu_deltas[n]!r} on the CPU")
+    out["fits_differing_from_cpu"] = len(diff)
+    out["pgd"] = check_pgd(dev, pgd_targets(corp))
+    print(f"corpus pgd on {CARD}: {json.dumps(out['pgd'])}")
+
+    # 3. the store: incremental synthesis, unchanged, after a removal
+    t0 = time.perf_counter()
+    inc = synthesize_corpus(store=cs, device=dev, out_dir=work / "store")
+    out["store_cold_ms"] = 1e3 * (time.perf_counter() - t0)
+    if corpus_deltas(inc) != corpus_deltas(corp):
+        fail("corpus: store synthesis delta_bar differs from batch")
+    t0 = time.perf_counter()
+    again = synthesize_corpus(store=cs, device=dev, out_dir=work / "store")
+    out["store_unchanged_ms"] = 1e3 * (time.perf_counter() - t0)
+    if again.stats["n_solver_calls"] != 0:
+        fail(f"corpus: unchanged store re-solved: {again.stats}")
+    cs.remove_scenario("transformer-dp")
+    t0 = time.perf_counter()
+    after = synthesize_corpus(store=cs, device=dev, out_dir=work / "store")
+    out["store_after_removal_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["n_refit_terminals_after_removal"] = after.stats["n_refit_terminals"]
+    scratch = synthesize_corpus([(n, stores[n]) for n in cs.names],
+                                device=dev, out_dir=work / "survivors")
+    if corpus_deltas(after) != corpus_deltas(scratch):
+        fail("corpus: delta_bar after the removal differs from a "
+             "from-scratch synthesis of the survivors")
+    cs.add_scenario("transformer-dp-replay", stores["transformer-dp"])
+    print(f"corpus store on {CARD}: cold {out['store_cold_ms']:.1f} ms, "
+          f"unchanged {out['store_unchanged_ms']:.1f} ms, after removing "
+          f"transformer-dp {out['store_after_removal_ms']:.1f} ms "
+          f"({out['n_refit_terminals_after_removal']} terminals refit)")
+
+    # 4. the service
+    t0 = time.perf_counter()
+    svc = ProxyService(cs, device=dev, out_dir=work / "serve")
+    out["service_build_ms"] = 1e3 * (time.perf_counter() - t0)
+    pool = [stores[n] for n in names]
+    pool += [dataclasses.replace(stores[n], metrics=stores[n].metrics * 1.7
+                                 + 13.0) for n in names]
+    pool += [TraceStore.from_rank_traces(synthetic_rank_traces(r), {"x": r})
+             for r in (8, 16, 32)]
+    pool += [dataclasses.replace(stores[n], metrics=stores[n].metrics * 0.5)
+             for n in names]
+    queries = (pool * (CORPUS_QUERIES // len(pool) + 1))[:CORPUS_QUERIES]
+    times = []
+    for q in queries:
+        t0 = time.perf_counter()
+        svc.query(q)
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["query_mean_ms"] = float(np.mean(times))
+    out["query_p50_ms"] = float(np.median(times))
+    many = (pool * (60 // len(pool) + 1))[:60]
+    seq = [svc.query(q) for q in many]
+    t0 = time.perf_counter()
+    bat = svc.query_batch(many)
+    out["batched_queries_per_s"] = len(many) / (time.perf_counter() - t0)
+    for s, b in zip(seq, bat):
+        if (s.name, s.distance, s.distances) != (b.name, b.distance,
+                                                 b.distances):
+            fail(f"corpus service: batched {b.name} {b.distance!r} != "
+                 f"sequential {s.name} {s.distance!r}")
+    for n in cs.names:
+        ans = svc.query(cs.load_scenario(n))
+        if ans.distances.get(n, ans.distance) != ans.distance:
+            fail(f"corpus service: {n}'s own trace is not its nearest "
+                 f"({ans.name} at {ans.distance!r})")
+    half = CORPUS_RANKS // 2
+    cs.add_scenario(f"halo-{half}", TraceStore.from_rank_traces(
+        synthetic_rank_traces(half), {"x": half}))
+    t0 = time.perf_counter()
+    svc.refresh()
+    out["refresh_ms"] = 1e3 * (time.perf_counter() - t0)
+    rebuilt = ProxyService(CorpusStore(cs.root), device=dev,
+                           out_dir=work / "serve")
+    if svc._names != rebuilt._names or any(
+            not np.array_equal(svc.embedding(n), rebuilt.embedding(n))
+            for n in svc._names):
+        fail("corpus service: the refreshed service differs from a "
+             "rebuilt one")
+    for q in many[:10]:
+        a, b = svc.query(q), rebuilt.query(q)
+        if (a.name, a.distance) != (b.name, b.distance):
+            fail("corpus service: refreshed and rebuilt answer differently")
+    if svc.stats["n_warm_synthesis"] != 1:
+        fail(f"corpus service: {svc.stats['n_warm_synthesis']} warm syntheses")
+    h100 = CHIPS["h100"]
+    worst = 0.0
+    profiles = {}
+    for n, res in svc.corpus.results.items():
+        preds = predict_all(res.proxy.module)
+        profiles[n] = {c: p.step_time for c, p in preds.items()}
+        for r in range(res.proxy.module.N_RANKS):
+            hc = HloCost.from_metric_vector(res.proxy.rank_metrics(r))
+            for want, got in ((hc.flops / h100.peak_flops,
+                               preds["h100"].t_compute[r]),
+                              (hc.bytes / h100.hbm_bw,
+                               preds["h100"].t_memory[r])):
+                if want > 0:
+                    worst = max(worst, abs(got - want) / want)
+    out["predicted_step_s"] = profiles
+    out["h100_walker_rel_gap"] = worst
+    if worst > CORPUS_WALKER_GAP:
+        fail(f"corpus: h100 prediction off the walker by {worst!r}")
+    svc.close(), rebuilt.close()
+    print(f"corpus service on {CARD}: query mean "
+          f"{out['query_mean_ms']:.3f} ms, p50 {out['query_p50_ms']:.3f} ms, "
+          f"{out['batched_queries_per_s']:.1f} batched queries/s, refresh "
+          f"{out['refresh_ms']:.1f} ms")
+
+    # 5. the chaos sweep over the store's fault points
+    t0 = time.perf_counter()
+    zoo = {"a": stores["ssm-decode"], "b": stores["moe-ep"],
+           "c": stores["encdec-pipeline"]}
+    rows = chaos.smoke(zoo, n_workers=4, base=work / "chaos")
+    out["chaos_s"] = time.perf_counter() - t0
+    out["chaos_points"] = len(rows) - 3
+    print(f"corpus chaos on {CARD}: {len(rows) - 3} fault points "
+          f"recovered to survivor parity in {out['chaos_s']:.2f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 def flash_inputs(gen, b, s, h, g, d, dtype, dev, t=None):
@@ -2523,6 +2871,10 @@ def main() -> None:
     trace = phase_trace(dev)
     trace["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"trace": trace}))
+    t0 = time.perf_counter()
+    corpus = phase_corpus(dev)
+    corpus["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"corpus": corpus}))
     rows.append({"name": "flash_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/flash_attention/"
                            "backward.cu",

@@ -8,9 +8,9 @@ over the family's smoke-config step functions on meta tensors:
 :func:`_model_costs`) with the family's canonical parallelism schedule
 recorded through :class:`~repro_torch.core.tracer.TraceSession`.  Builders
 return columnar :class:`~repro_torch.core.trace_ir.TraceStore` traces.
-All five scenarios trace; ``ingest_scenarios`` waits for the corpus store
-(ROADMAP, queue 1, item 8) and the dry-run input specs for the sharding
-substrate (item 12).
+All five scenarios trace, and :func:`ingest_scenarios` streams them into a
+:class:`~repro_torch.core.corpus_store.CorpusStore`; the dry-run input
+specs wait for the sharding substrate (ROADMAP, queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -237,3 +237,21 @@ def build_scenario(name: str, n_ranks: int | None = None,
                     sess.emit([peer], ComputeEvent(costs["decode"]))
         sess.emit(None, CommEvent("psum", (d,), "float32", ("stage",)))
     return sess.to_store()
+
+
+def ingest_scenarios(corpus_store, names=None, **build_kwargs) -> list[str]:
+    """Stream zoo scenarios into a
+    :class:`repro_torch.core.corpus_store.CorpusStore` **one at a time** —
+    each :func:`build_scenario` result is appended (and incrementally
+    clustered) before the next is built, so the corpus never needs the
+    whole zoo in memory.  Scenarios already in the store are skipped
+    (re-running is an idempotent catch-up).  Returns the names added.
+    (The reference's ``registry.py:317-331``.)
+    """
+    added = []
+    for name in (SCENARIO_IDS if names is None else names):
+        if name in corpus_store:
+            continue
+        corpus_store.add_scenario(name, build_scenario(name, **build_kwargs))
+        added.append(name)
+    return added

@@ -327,6 +327,21 @@ def choose_solver(n_targets: int, solver: str = "auto") -> str:
 # ---------------------------------------------------------------------------
 
 
+def _fold(terms: list) -> torch.Tensor:
+    """``terms[0] + terms[1] + ...``, left to right: one fixed order and one
+    IEEE rounding an addition, whatever the batch and the device (see
+    :func:`_pgd_grid`)."""
+    acc = terms[0]
+    for term in terms[1:]:
+        acc = acc + term
+    return acc
+
+
+def _matvec(cols: list, vec: torch.Tensor) -> torch.Tensor:
+    """``M @ v`` row by row for ``cols[k] = M[:, :, k]``, as a fold."""
+    return _fold([c * vec[:, k:k + 1] for k, c in enumerate(cols)])
+
+
 def _pgd_grid(targets: np.ndarray, bss: np.ndarray, iters: int = 400,
               device=None) -> np.ndarray:
     """Batched projected-gradient NNLS over (target, substituted-matrix)
@@ -336,31 +351,46 @@ def _pgd_grid(targets: np.ndarray, bss: np.ndarray, iters: int = 400,
     substituted block matrices (rows may repeat a matrix, e.g. the unroll
     grid).  Every row solves in the same batched tensor ops on ``device``
     (``None`` means the CUDA card).  Returns the real-valued substituted
-    solutions ``(n, 11)``."""
+    solutions ``(n, 11)``.
+
+    Every reduction is an explicit left fold of elementwise products and
+    sums (:func:`_fold`), not a batched matmul or a reduction kernel, whose
+    order may change with the batch count (cuBLAS picks its kernel by
+    shape).  Elementwise float32 operations round once each, the same on
+    the CPU and the card, so a row's solution depends on neither its batch
+    nor the device: the incremental corpus path (a padded miss batch) and
+    the batch path (every terminal at once) fit each target to the same
+    bits, and the card's fits equal the CPU's."""
     dev = resolve_device(device)
     t = torch.from_numpy(np.array(targets, dtype=np.float32)).to(dev)
     bs = torch.from_numpy(np.array(bss, dtype=np.float32)).to(dev)
-    n_cols = bs.shape[-1]
+    n_rows, n_metrics, n_cols = bs.shape
+    # the mean block magnitude, divided by a tensor: CUDA divides by a
+    # Python scalar as a product with its reciprocal, the CPU does not
+    blk = _fold([bs[:, :, k] for k in range(9)])
+    blk = blk / torch.full_like(blk, 9.0)
     w = torch.where(t > 0, 1.0 / torch.clamp(t, min=_EPS),
-                    0.1 / torch.clamp(bs[:, :, :9].mean(dim=-1), min=_EPS))
+                    0.1 / torch.clamp(blk, min=_EPS))
     a = bs * w[:, :, None]
     rhs = t * w
-    at = a.transpose(1, 2)
-    ata = at @ a                                   # (n, 11, 11)
-    atb = (at @ rhs[:, :, None])[..., 0]           # (n, 11)
+    rows = [a[:, i, :] for i in range(n_metrics)]           # (n, 11) each
+    ata = _fold([r[:, :, None] * r[:, None, :] for r in rows])
+    atb = _fold([r * rhs[:, i:i + 1] for i, r in enumerate(rows)])
+    cols = [ata[:, :, k] for k in range(n_cols)]
+
+    def dot(u, v):                                           # (n, 1)
+        return _fold([u[:, k:k + 1] * v[:, k:k + 1] for k in range(n_cols)])
+
     # Lipschitz constant via 20 power-iteration steps
-    v = torch.full((t.shape[0], n_cols), 1.0 / np.sqrt(n_cols),
+    v = torch.full((n_rows, n_cols), 1.0 / np.sqrt(n_cols),
                    dtype=torch.float32, device=dev)
     for _ in range(20):
-        v = (ata @ v[:, :, None])[..., 0]
-        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
-                            min=_EPS)
-    lip = torch.clamp(((v[:, None, :] @ ata)[:, 0, :] * v).sum(dim=-1),
-                      min=_EPS)
-    eta = (1.0 / lip)[:, None]
+        v = _matvec(cols, v)
+        v = v / torch.clamp(torch.sqrt(dot(v, v)), min=_EPS)
+    eta = 1.0 / torch.clamp(dot(v, _matvec(cols, v)), min=_EPS)
     y = torch.zeros_like(atb)
     for _ in range(int(iters)):
-        g = (ata @ y[:, :, None])[..., 0] - atb
+        g = _matvec(cols, y) - atb
         y = torch.clamp(y - eta * g, min=0.0)
     return y.cpu().numpy().astype(np.float64)
 

@@ -72,6 +72,45 @@ def test_the_tracer_front_end_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+#: the corpus tier's modules (slice 10)
+CORPUS_TIER = ("repro_torch.core.faults", "repro_torch.core.corpus_store",
+               "repro_torch.core.fsck", "repro_torch.core.chaos",
+               "repro_torch.core.synthesize", "repro_torch.configs.registry",
+               "repro_torch.launch.hlo_cost", "repro_torch.core.portability",
+               "repro_torch.serve.ann", "repro_torch.serve.proxy_service")
+
+
+def test_the_corpus_tier_runs_without_jax(tmp_path):
+    """The store, corpus synthesis, fsck, the chaos sweep's coverage and a
+    served query, with JAX unimportable and nothing of the reference
+    loaded."""
+    assert set(CORPUS_TIER) <= set(_modules())
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"root = {str(tmp_path)!r}\n"
+        "from repro_torch.configs.registry import ingest_scenarios\n"
+        "from repro_torch.core import chaos\n"
+        "from repro_torch.core.corpus_store import CorpusStore\n"
+        "from repro_torch.core.synthesize import synthesize_corpus\n"
+        "from repro_torch.serve.proxy_service import ProxyService\n"
+        "cs = CorpusStore(root + '/c')\n"
+        "ingest_scenarios(cs, ['ssm-decode', 'moe-ep'], n_ranks=2, steps=1)\n"
+        "rep = synthesize_corpus(store=cs, device='cpu').report()\n"
+        "assert rep['all_comm_lossless'], rep\n"
+        "assert cs.verify().clean\n"
+        "svc = ProxyService(cs, device='cpu')\n"
+        "assert svc.query(cs.load_scenario('moe-ep')).name == 'moe-ep'\n"
+        "chaos.coverage_row(chaos.tiny_zoo(), root + '/chaos')\n"
+        "bad = sorted(m for m in sys.modules if m == 'repro' or\n"
+        "             m.startswith(('repro.', 'jax')) and sys.modules[m])\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imports(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):

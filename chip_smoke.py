@@ -78,7 +78,18 @@ paths on the card, checking that each went through its kernels:
   ``ProxyService`` over the store (single and batched queries, a refresh
   equal to a rebuilt service, ``predict_all`` over the port's cards, on
   the H100 against the walker); and the chaos sweep of every fault point
-  of the store (``repro_torch.core.chaos``).
+  of the store (``repro_torch.core.chaos``);
+- slice 11: the mesh-sharded replay tier (:func:`phase_mesh`) on a
+  one-process NCCL group started in process: the 64-rank trace's
+  ``run_all(mesh=..., per_rank_seeds=True)`` bit-equal to LocalSim's, its
+  800 + 800 proxy-block launches, delta_bar and the noisy distribution
+  bit-identical with ``mesh_checked``, the NCCL kernels and c10d calls of
+  a sweep under the profiler, one sweep's result broadcasts timed apart
+  from the rest, ``time_all(mesh=)`` and ``time_local(0)``; then the four
+  example scripts at their published sizes (:func:`phase_examples`: the
+  quickstart, whose delta_bar must equal the CPU's to 1e-12, the pipeline,
+  serve-and-proxy, and ``torch_train_e2e.py --full``, whose loss must
+  drop).
 
 Then it times every kernel against its plain version, its bound and, where
 one PyTorch call computes the same function, that call; for the two
@@ -122,6 +133,8 @@ PEAK_BYTES = 3.35e12
 #: the port to the live reference on the CPU)
 REFERENCE_DELTA = 0.006768716933820147
 N_RANKS = 64
+#: mxu_iter and stream_iter launches of one sweep of the 64-rank trace, each
+N_PROXY_LAUNCHES = 800
 #: bf16 outputs of one turn: at most one bf16 ulp (8 significant bits) of
 #: the largest output, max|got - want| <= MXU_RTOL * max|want|.  Over reps
 #: turns the limit is sqrt(reps) times that: the kernel and cuBLAS sum in
@@ -708,6 +721,227 @@ def phase_flavors_and_noise(dev, res) -> dict:
             "delta_bar": ft.mean, "noisy_mean": a.mean,
             "noisy_ci": list(a.ci()), "noisy_mean_cpu": d.mean,
             "noisy_ci_cpu": [lo, hi], "draws_a_replica": draws}
+
+
+def phase_mesh(dev, res) -> dict:
+    """Slice 11: the mesh-sharded replay tier on a one-process NCCL group
+    (started in process on a HashStore: no network).  On the 64-rank trace,
+    run_all(mesh=make_replay_mesh(submesh_axis_sizes(1, axes)),
+    per_rank_seeds=True) must give final states bit-equal to LocalSim's
+    run_all(per_rank_seeds=True): every collective runs over a group of
+    one, where each kind is the identity in exact arithmetic.  Its
+    mxu_iter/stream_iter launches must equal LocalSim's (800 each);
+    delta_bar must be bit-identical with mesh_checked, and the seeded noisy
+    distribution bit-identical under the mesh.  Reports the NCCL kernels a
+    sweep launches (profiler), run_all(mesh=) against run_all() ms, the
+    split of one mesh sweep between its result broadcasts (``_share``: the
+    c10d broadcast and the receivers' copies, the card synchronized before
+    and after each) and the rest, time_all(mesh=) and time_local(0).
+    Destroys the group at the end."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.noise import NoiseConfig
+    from repro_torch.core.replay import submesh_axis_sizes
+    from repro_torch.launch.mesh import make_replay_mesh
+
+    p = res.proxy
+    p.run_all(per_rank_seeds=True)              # warm
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_replay_mesh(submesh_axis_sizes(1, p.axis_sizes))
+        plan = p.mesh_sweep_plan(mesh)
+        p.run_all(mesh=mesh, per_rank_seeds=True)     # warm: NCCL set-up
+        # in turns, LocalSim, mesh, mesh, LocalSim; counts read per run
+        runs = {"local": [], "mesh": []}
+        for which in ("local", "mesh", "mesh", "local"):
+            reset_counts()
+            t = time.perf_counter()
+            out = p.run_all(mesh=mesh if which == "mesh" else None,
+                            per_rank_seeds=True)
+            runs[which].append((1e3 * (time.perf_counter() - t),
+                                read_counts()))
+            if which == "mesh":
+                states = out
+            else:
+                local = out
+        ms_mesh = [ms for ms, _ in runs["mesh"]]
+        ms_local = [ms for ms, _ in runs["local"]]
+        launches, l_local = runs["mesh"][0][1], runs["local"][0][1]
+        print(f"mesh: {len(plan)} placements "
+              f"{[(pl.device_ids, pl.axis_sizes) for pl in plan]}; "
+              f"run_all(mesh=) {ms_mesh} ms, LocalSim run_all "
+              f"{ms_local} ms (per-rank seeds, in turns); launches "
+              f"{json.dumps(launches)} (LocalSim {json.dumps(l_local)})")
+        for name in ("mxu_iter", "stream_iter"):
+            for which, rows in runs.items():
+                if any(c[name] != N_PROXY_LAUNCHES for _, c in rows):
+                    fail(f"{which} sweep launched {name} "
+                         f"{[c[name] for _, c in rows]} times, not "
+                         f"{N_PROXY_LAUNCHES}")
+        if sorted(states) != sorted(local):
+            fail("mesh run_all did not return every rank")
+        for r in local:
+            for k in local[r]:
+                if not torch.equal(states[r][k], local[r][k]):
+                    fail(f"mesh state of rank {r} leaf {k} differs from "
+                         "LocalSim's")
+        stats = p.cache_stats()
+        fm = res.fidelity(sample_ranks=None, mesh=mesh)
+        fl = res.fidelity(sample_ranks=None)
+        if not (np.array_equal(fm.delta, fl.delta) and fm.mesh_checked
+                and fm.comm_lossless):
+            fail(f"mesh delta_bar {fm.mean!r} != LocalSim {fl.mean!r}, or "
+                 f"mesh_checked {fm.mesh_checked}")
+        cfg = NoiseConfig(seed=NOISE_SEED, n_replicas=NOISE_REPLICAS)
+        dm = res.fidelity(sample_ranks=None, mesh=mesh, noise=cfg)
+        dl = res.fidelity(sample_ranks=None, noise=cfg)
+        if not (np.array_equal(dm.replica_delta, dl.replica_delta)
+                and np.array_equal(dm.comm_bytes, dl.comm_bytes)
+                and dm.mesh_checked):
+            fail("the noisy distribution differs under the mesh")
+        print(f"mesh: states bit-equal to LocalSim's; delta_bar "
+              f"{fm.mean!r} bit-identical, mesh_checked {fm.mesh_checked}; "
+              f"noisy mean {dm.mean!r} bit-identical; cache {stats}")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            p.run_all(mesh=mesh, per_rank_seeds=True)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+        rows = kernel_times(prof)
+        nccl = {key: n for _t, n, key in rows if "nccl" in key.lower()}
+        calls = {e.key: e.count for e in prof.key_averages()
+                 if e.key.startswith("nccl:")}
+        print(f"mesh profile: wall {wall:.1f} ms under the profiler, "
+              f"{sum(r[1] for r in rows)} kernel launches, "
+              f"{sum(r[0] for r in rows) / 1e3:.2f} ms of device kernels; "
+              f"NCCL kernels {json.dumps(nccl)}; c10d NCCL calls "
+              f"{json.dumps(calls)}")
+        share_ms = []
+        share = p._share
+
+        def timed_share(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = share(*args)
+            torch.cuda.synchronize()
+            share_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        p._share = timed_share
+        try:
+            t = time.perf_counter()
+            p.run_all(mesh=mesh, per_rank_seeds=True)
+            torch.cuda.synchronize()
+            ms_split = 1e3 * (time.perf_counter() - t)
+        finally:
+            del p._share
+        t = time.perf_counter()
+        p.run_all(per_rank_seeds=True)
+        ms_split_local = 1e3 * (time.perf_counter() - t)
+        print(f"mesh split: run_all(mesh=) {ms_split:.2f} ms, of which "
+              f"{len(share_ms)} result broadcasts {sum(share_ms):.2f} ms "
+              f"({[round(x, 3) for x in share_ms]}) and the rest "
+              f"{ms_split - sum(share_ms):.2f} ms; LocalSim run_all "
+              f"{ms_split_local:.2f} ms next ({CARD})")
+        ms_time_all = 1e3 * p.time_all(mesh=mesh, per_rank_seeds=True,
+                                       iters=3)
+        ms_time_all_local = 1e3 * p.time_all(per_rank_seeds=True, iters=3)
+        ms_local0 = 1e3 * p.time_local(0, iters=3)
+        print(f"mesh: time_all(mesh=) {ms_time_all:.2f} ms, time_all() "
+              f"{ms_time_all_local:.2f} ms (per-rank seeds, mean of 3); "
+              f"time_local(0) {ms_local0:.3f} ms ({CARD})")
+    finally:
+        dist.destroy_process_group()
+    return {"placements": len(plan), "run_all_mesh_ms": ms_mesh,
+            "run_all_local_ms": ms_local, "launches": launches,
+            "nccl_launches": sum(nccl.values()), "nccl_kernels": nccl,
+            "nccl_calls": calls, "split_mesh_ms": ms_split,
+            "split_share_ms": share_ms, "split_local_ms": ms_split_local,
+            "time_all_mesh_ms": ms_time_all,
+            "time_all_local_ms": ms_time_all_local,
+            "time_local_ms": ms_local0, "delta_bar": fm.mean,
+            "noisy_mean": dm.mean, "card": CARD}
+
+
+#: each example at its published size (the reference's defaults; the
+#: trainer at its --full size)
+EXAMPLES = (("torch_quickstart", []), ("torch_pipeline_proxy", []),
+            ("torch_serve_and_proxy", []), ("torch_train_e2e", ["--full"]))
+
+
+def quickstart_cpu_delta(mod) -> float:
+    """The quickstart's delta_bar at its published length, synthesized on
+    the CPU (the value the CPU tests hold to the reference's to 1e-12)."""
+    from repro_torch.core.synthesize import synthesize
+    from repro_torch.core.trace_ir import TraceStore
+    from repro_torch.core.tracer import trace_fn
+
+    trace = trace_fn(mod.stencil(12), torch.ones((256, 128)),
+                     torch.ones((128, 128)) * 0.01, axis_sizes={"x": mod.N})
+    res = synthesize(store=TraceStore.from_template(trace, {"x": mod.N}),
+                     name="stencil_proxy_cpu", device="cpu",
+                     out_dir=ROOT / "build" / "chip_smoke" / "quickstart_cpu")
+    return res.fidelity().mean
+
+
+def phase_examples() -> dict:
+    """Item 13: the four example scripts at their published sizes on the
+    card, in process (each script's main(); nothing caught: a failing
+    script, or a loss that does not drop, fails the run)."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    ckpt = ROOT / "build" / "chip_smoke" / "train_e2e_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = {}
+    for name, argv in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        if name == "torch_train_e2e":
+            argv = argv + ["--ckpt-dir", str(ckpt)]
+        print(f"--- examples/{name}.py {' '.join(argv)}")
+        reset_counts()
+        t0 = time.perf_counter()
+        got = mod.main(argv)
+        secs = time.perf_counter() - t0
+        row = {"s": secs, "launches": read_counts()}
+        if name == "torch_quickstart":
+            result, fid = got
+            cpu_mean = quickstart_cpu_delta(mod)
+            row.update(delta_bar=fid.mean, cpu_delta_bar=cpu_mean,
+                       lossless=fid.comm_lossless)
+            if not fid.comm_lossless:
+                fail("quickstart: comm not lossless")
+            if not abs(fid.mean - cpu_mean) <= 1e-12:
+                fail(f"quickstart: delta_bar {fid.mean!r} on the card, "
+                     f"{cpu_mean!r} on the CPU")
+            if not all(row["launches"][k] > 0
+                       for k in ("mxu_iter", "stream_iter")):
+                fail(f"quickstart's replay did not go through the proxy-"
+                     f"block kernels: {row['launches']}")
+        elif name == "torch_pipeline_proxy":
+            row.update(delta_bar=got[1].mean, lossless=got[1].comm_lossless)
+        elif name == "torch_serve_and_proxy":
+            gen, _result, fid = got
+            row.update(tokens_per_s=gen.tokens_per_sec,
+                       prefill_ms=1e3 * gen.prefill_sec, delta_bar=fid.mean)
+        else:
+            losses = [m["loss"] for m in got]
+            row.update(steps=len(got), first_loss=losses[0],
+                       last_loss=losses[-1],
+                       step_ms=1e3 * float(np.median(
+                           [m["sec"] for m in got[5:]])))
+        print(f"--- {name}: {secs:.1f} s, {json.dumps(row)}")
+        out[name] = row
+    return out
 
 
 def phase_baselines(dev) -> dict:
@@ -2851,6 +3085,10 @@ def main() -> None:
     phase_profile(res)
     phase_per_rank_seeds(res)
     proxy = phase_flavors_and_noise(dev, res)
+    t0 = time.perf_counter()
+    mesh = phase_mesh(dev, res)
+    mesh["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"mesh": mesh}))
     del res
     t0 = time.perf_counter()
     baselines = phase_baselines(dev)
@@ -2875,6 +3113,10 @@ def main() -> None:
     corpus = phase_corpus(dev)
     corpus["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"corpus": corpus}))
+    t0 = time.perf_counter()
+    examples = phase_examples()
+    print(json.dumps({"examples": examples,
+                      "phase_s": time.perf_counter() - t0}))
     rows.append({"name": "flash_bwd", "route": "cuda",
                  "source": "src/repro_torch/kernels/flash_attention/"
                            "backward.cu",

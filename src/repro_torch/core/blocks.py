@@ -285,6 +285,31 @@ def run_combo(st: dict, x, unroll: int = 1) -> dict:
     return st
 
 
+def run_combo_dyn(st: dict, x, unroll: int = 1) -> dict:
+    """Count-vector variant of :func:`run_combo`: ``x`` is an int tensor
+    (or array) of 11 counts, and the block-11 padding is clamped at 0
+    rather than checked.
+
+    The reference traces ``x`` into the compiled replay as a device value
+    whose trip counts the loops read on the device.  Eager PyTorch has no
+    traced trip count: a loop's turns are host integers.  So the counts are
+    read to the host once, in one transfer, before any block runs."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", torch.int64).tolist()
+    x = [int(v) for v in np.asarray(x, dtype=np.int64).reshape(-1)]
+    if len(x) != N_BLOCKS:
+        raise ValueError(f"need {N_BLOCKS} counts, got {len(x)}")
+    for i, name in enumerate(BLOCK_NAMES[:9]):
+        if x[i] > 0:
+            st = repeat_block(name, x[i], st, unroll)
+    pad = max(x[10] - sum(x[:9]), 0)
+    if pad > 0:
+        st = empty_turns(pad, st)
+    if x[9] > 0:
+        st = empty_turns(x[9], st)
+    return st
+
+
 # -- calibration: build matrix B (paper eq. 2) --------------------------------
 
 

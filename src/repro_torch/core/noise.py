@@ -418,6 +418,33 @@ def calibrate(store, cluster_ids: np.ndarray | None = None,
                       sigma_floor=sigma_floor)
 
 
+def calibrate_trace(trace, rel_tol: float = 0.05,
+                    sigma_floor: float = SIGMA_FLOOR,
+                    comm_shift: float = COMM_SHIFT) -> NoiseModel:
+    """Calibrate directly from one template
+    :class:`~repro_torch.core.tracer.Trace` (single-rank convenience
+    wrapper; same math as :func:`calibrate`).  Copy of the reference's
+    ``noise.calibrate_trace``."""
+    metrics = trace.compute_metrics_array()
+    cluster_ids, _ = cluster_vectors(metrics, rel_tol)
+    compute_sigmas: dict[int, float] = {}
+    mags = metrics.sum(axis=1)
+    for cid in np.unique(cluster_ids):
+        compute_sigmas[int(cid)] = _log_sigma(mags[cluster_ids == cid],
+                                              sigma_floor)
+    by_kind: dict[str, list[tuple[float, float]]] = {}
+    for ev in trace.comm_events():
+        by_kind.setdefault(ev.kind, []).append((float(ev.payload_bytes), 1.0))
+    comm_params = {
+        kind: (_weighted_log_sigma(np.array([m for m, _ in pairs]),
+                                   np.array([w for _, w in pairs]),
+                                   sigma_floor), comm_shift)
+        for kind, pairs in by_kind.items()
+    }
+    return NoiseModel(compute_sigmas=compute_sigmas, comm_params=comm_params,
+                      sigma_floor=sigma_floor)
+
+
 # ---------------------------------------------------------------------------
 # Replay-facing config + distribution summary
 # ---------------------------------------------------------------------------

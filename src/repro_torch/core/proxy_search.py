@@ -243,6 +243,13 @@ def fit_combination(t: np.ndarray, b: np.ndarray | None = None,
     return best
 
 
+def fit_many(targets: np.ndarray, b: np.ndarray | None = None) -> list[FitResult]:
+    """Fit every target row with :func:`fit_combination`, row by row on the
+    host (the reference's ``fit_many``); :func:`fit_batch` fits them all
+    in one device program."""
+    return [fit_combination(t, b) for t in np.atleast_2d(targets)]
+
+
 def fit_batch(targets: np.ndarray,
               b: np.ndarray | None = None,
               unrolls: Sequence[int] = _UNROLLS,

@@ -1,7 +1,7 @@
 """Proxy replay engine + fidelity measurement (paper §3.3).
 
-Port of :mod:`repro.core.replay` (LocalSim replay and seeded noisy
-replicas; the mesh sweep is not ported yet).
+Port of :mod:`repro.core.replay`: replay under ``LocalSim``, seeded noisy
+replicas, and the mesh-sharded sweep on ``torch.distributed``.
 
 ``rep`` is the run-length replay primitive used by generated code: small
 exponents unroll, large ones become a counted loop, so the walker costs a
@@ -17,6 +17,19 @@ symbols.
     and its ranks share the result; with ``per_rank_seeds`` the group's
     states are stacked on a leading rank axis and replayed in one pass (the
     reference's ``vmap``);
+  * ``run_all(ranks, mesh=...)`` is the **mesh-sharded sweep**: signature
+    groups are placed on disjoint device subsets of a
+    :class:`~torch.distributed.device_mesh.DeviceMesh`
+    (:func:`plan_mesh_sweep`, driven by the per-group device hints the
+    generated module carries) and replay their real collectives through
+    :class:`~repro_torch.sharding.collectives.DeviceComm`, a group's stacked
+    states in one pass.  The process model is SPMD: every process of the
+    world (the default process group, whose broadcasts and barrier the
+    sweep uses, not only the mesh's processes) calls ``run_all(mesh=...)``
+    with the same arguments, runs the placements that hold its rank, and
+    receives every other placement's result by a broadcast from that
+    placement's first process;
+  * ``time_local(rank)`` times one rank's replay;
   * ``rank_metrics(rank)`` walks the generated code with the same cost
     walker used on the original program (cached per signature);
   * ``fidelity(original)`` computes δ̄ = mean_{m,p} |A-B|/A (paper eq. 8);
@@ -29,13 +42,15 @@ symbols.
 State lives on ``device``: ``None`` means the CUDA card, where blocks 1
 and 3 run as the hand-written kernels.  Replay is eager PyTorch, so there
 is no compile step; the caches keep one bound program per (signature, comm
-backend, state shapes) and one walker measurement per (signature, state
-shapes), and ``cache_stats()`` reports them.
+backend, state shapes), plus the placement in mesh mode, and one walker
+measurement per (signature, state shapes), and ``cache_stats()`` reports
+them.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
+import math
 import sys
 import tempfile
 import time
@@ -44,6 +59,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import blocks
 from repro_torch.core import noise as noise_mod
@@ -54,7 +70,8 @@ from repro_torch.core.noise import (FidelityDistribution,  # noqa: F401
 from repro_torch.core.metrics import torch_dtype
 from repro_torch.core.tracer import counted_loop, trace_fn
 from repro_torch.device import resolve_device
-from repro_torch.sharding.collectives import LocalSim
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.sharding.collectives import DeviceComm, LocalSim
 
 #: Exponents up to this unroll; above it ``rep`` runs a counted loop (one
 #: walk of the body regardless of n).  Shared with the program-table
@@ -109,12 +126,156 @@ def stack_states(states: Sequence[dict]) -> dict:
     return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
 
+# ---------------------------------------------------------------------------
+# mesh sweep scheduling (copied from the reference's replay.py:121-262: pure
+# Python over hints and sizes, so its plans are the reference's)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupPlacement:
+    """One signature group pinned to a mesh device subset.
+
+    ``device_ids`` are flat indices into the mesh's devices; ``axis_sizes``
+    is the group's sub-mesh geometry (same axis names as the traced
+    program, sizes shrunk to the subset).  Hashable: a cache-key component,
+    so bound programs and process groups are kept *per placement*."""
+    sig: tuple
+    ranks: tuple[int, ...]
+    device_ids: tuple[int, ...]
+    axis_sizes: tuple[tuple[str, int], ...]
+
+    @property
+    def n_devices(self) -> int:
+        return len(self.device_ids)
+
+    def key(self) -> tuple:
+        return (self.device_ids, self.axis_sizes)
+
+
+def submesh_axis_sizes(n_devices: int, axis_sizes: dict[str, int],
+                       ) -> dict[str, int]:
+    """Shrink a traced mesh geometry onto ``n_devices``.
+
+    Keeps the axis names and order; each axis gets ``gcd(traced_size,
+    devices_still_unassigned)`` so the product always divides ``n_devices``
+    exactly and every collective still spans a nonempty axis.  A comm-free
+    program (no traced axes) gets a single unit axis so it has a mesh to
+    run under.
+    """
+    out: dict[str, int] = {}
+    rem = max(int(n_devices), 1)
+    for a, s in axis_sizes.items():
+        g = math.gcd(max(int(s), 1), rem)
+        out[a] = g
+        rem //= g
+    if not out:
+        out = {"x": 1}
+    return out
+
+
+def _proportional_alloc(want: Sequence[int], n_devices: int,
+                        axis_sizes: dict[str, int],
+                        ) -> tuple[list[int], list[int]]:
+    """Hint-proportional contiguous device shares (requires
+    ``len(want) <= n_devices``); returns (alloc, starts)."""
+    total = sum(want)
+    alloc = [min(w, max(1, (n_devices * w) // total)) for w in want]
+    # bumping zero-share groups to 1 device can oversubscribe the mesh;
+    # shave the largest shares back until the plan fits
+    while sum(alloc) > n_devices:
+        i = alloc.index(max(alloc))
+        alloc[i] -= 1
+    # hand leftovers to the groups furthest below their hint
+    while sum(alloc) < n_devices:
+        gaps = [w - a for w, a in zip(want, alloc)]
+        if max(gaps) <= 0:
+            break
+        i = gaps.index(max(gaps))
+        alloc[i] += 1
+    # shrink each share to the largest realizable sub-mesh size
+    alloc = [_realizable(a, axis_sizes) for a in alloc]
+    starts = []
+    cur = 0
+    for a in alloc:
+        starts.append(cur)
+        cur += a
+    return alloc, starts
+
+
+def plan_mesh_sweep(groups: Sequence[tuple[tuple, Sequence[int]]],
+                    hints: dict[tuple, int],
+                    axis_sizes: dict[str, int],
+                    n_devices: int,
+                    share_unit_groups: bool = False) -> list[GroupPlacement]:
+    """Partition ``n_devices`` mesh devices among signature groups.
+
+    Pure function of its inputs (deterministic; no device state touched):
+
+    * every group gets at least one device and never more than its hint;
+    * shares are proportional to the per-group device hints, leftovers go
+      to the groups furthest below their hint;
+    * device subsets are contiguous and disjoint while supply lasts; with
+      more groups than devices, groups wrap round-robin onto single devices
+      (their replays then serialize per device, which is still correct);
+    * each subset is trimmed to the realizable sub-mesh size
+      (:func:`submesh_axis_sizes`), so the placement's geometry always
+      multiplies out to exactly ``len(device_ids)``;
+    * with ``share_unit_groups=True``, two or more unit-hint groups are
+      packed onto **one shared device** when demand exceeds supply, and the
+      freed devices go to groups still below their hint.
+    """
+    n_devices = max(int(n_devices), 1)
+    groups = [(sig, list(rs)) for sig, rs in groups]
+    if not groups:
+        return []
+    want = [max(int(hints.get(sig, 1)), 1) for sig, _ in groups]
+    n = len(groups)
+    if n >= n_devices:
+        alloc = [1] * n
+        starts = [i % n_devices for i in range(n)]
+    else:
+        unit = [i for i, w in enumerate(want) if w == 1]
+        big = [i for i, w in enumerate(want) if w > 1]
+        if share_unit_groups and len(unit) >= 2 and big \
+                and n_devices >= 2 and sum(want) > n_devices:
+            big_alloc, big_starts = _proportional_alloc(
+                [want[i] for i in big], n_devices - 1, axis_sizes)
+            alloc = [1] * n
+            starts = [n_devices - 1] * n     # unit groups share the last dev
+            for i, a, s0 in zip(big, big_alloc, big_starts):
+                alloc[i] = a
+                starts[i] = s0
+        else:
+            alloc, starts = _proportional_alloc(want, n_devices, axis_sizes)
+    out = []
+    for (sig, rs), a, s0 in zip(groups, alloc, starts):
+        out.append(GroupPlacement(
+            sig=sig, ranks=tuple(rs),
+            device_ids=tuple(range(s0, s0 + a)),
+            axis_sizes=tuple(submesh_axis_sizes(a, axis_sizes).items())))
+    return out
+
+
+def _realizable(n_devices: int, axis_sizes: dict[str, int]) -> int:
+    """Largest ``v <= n_devices`` whose sub-mesh geometry multiplies out to
+    exactly ``v`` (1 always qualifies)."""
+    for v in range(max(int(n_devices), 1), 0, -1):
+        p = 1
+        for s in submesh_axis_sizes(v, axis_sizes).values():
+            p *= s
+        if p == v:
+            return v
+    return 1
+
+
 @dataclasses.dataclass
 class FidelityReport:
     """Per-(metric, rank) relative errors (paper Table 3 / Fig. 4)."""
     delta: np.ndarray          # (n_metrics, n_ranks)
     comm_lossless: bool        # event-id sequences reproduced exactly
     mean: float                # δ̄, paper eq. 8
+    mesh_checked: bool = False  # a mesh-sharded sweep ran, every leaf finite
     seed: int = 0              # replay seed provenance (deterministic: 0)
     n_replicas: int = 1        # deterministic replay is one replica
 
@@ -146,10 +307,13 @@ class ProxyProgram:
         self.axis_sizes = dict(axis_sizes or {})
         self.device = resolve_device(device)
         self._compiled: dict = {}          # (sig, comm, shapes) -> per-rank fn
+        self._compiled_mesh: dict = {}     # (sig, placement, ...) -> fn
         self._metrics_cache: dict = {}     # (sig, shapes) -> np.ndarray
+        self._mesh_comms: dict = {}        # (mesh ranks, placement) -> comm
         self._sig_by_rank: dict | None = None
         self._shapes_key_cache = None
-        self._counters = {"programs_bound": 0, "metric_traces": 0}
+        self._counters = {"programs_bound": 0, "metric_traces": 0,
+                          "batch_cache_hits": 0, "batch_cache_misses": 0}
 
     # -- signature grouping ----------------------------------------------------
 
@@ -220,6 +384,170 @@ class ProxyProgram:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- mesh-sharded sweep (device-parallel signature groups) -----------------
+
+    def group_device_hints(self) -> dict[tuple, int]:
+        """Per-signature device-count hints from the generated module.
+
+        Modules generated before the hint metadata (2-tuple groups) fall
+        back to the full traced mesh size, the span every collective would
+        need in the worst case."""
+        default = 1
+        for s in self.axis_sizes.values():
+            default *= max(int(s), 1)
+        out: dict[tuple, int] = {}
+        for g in getattr(self.module, "SIGNATURE_GROUPS", None) or ():
+            out[g[0]] = int(g[2]) if len(g) > 2 else default
+        return out
+
+    def mesh_sweep_plan(self, mesh, ranks: Sequence[int] | None = None,
+                        share_unit_groups: bool = True,
+                        ) -> list[GroupPlacement]:
+        """Deterministic placement of signature groups onto ``mesh``'s
+        devices (see :func:`plan_mesh_sweep`).  Unit-hint groups share one
+        device by default instead of idling devices each."""
+        return plan_mesh_sweep(self.signature_groups(ranks),
+                               self.group_device_hints(), self.axis_sizes,
+                               len(mesh_mod.mesh_ranks(mesh)),
+                               share_unit_groups=share_unit_groups)
+
+    def _mesh_check(self, mesh) -> tuple[int, ...]:
+        """The mesh's process ranks; raises without a process group or
+        when the mesh's devices are not this program's."""
+        dt = mesh_mod.backend_device_type()
+        if dt != self.device.type or mesh.device_type != dt:
+            raise ValueError(
+                f"a {mesh.device_type} mesh under a {dt} backend for a proxy "
+                f"on {self.device}: the mesh, the backend and the proxy's "
+                "device must agree (NCCL: cuda, gloo: cpu)")
+        return mesh_mod.mesh_ranks(mesh)
+
+    def _submesh_for(self, mesh, placement: GroupPlacement):
+        """The placement's process groups over the axes the program's
+        collectives span.  Every process builds every placement's groups in
+        plan order, which ``torch.distributed.new_group`` requires;
+        :meth:`_mesh_comm` keeps them."""
+        ranks = mesh_mod.mesh_ranks(mesh)
+        axes_sets = sorted({tuple(ev.axes) for ev in self.merged.table.events
+                            if is_comm(ev)})
+        return mesh_mod.Submesh([ranks[i] for i in placement.device_ids],
+                                dict(placement.axis_sizes), axes_sets)
+
+    def _mesh_comm(self, mesh, placement: GroupPlacement) -> DeviceComm:
+        """One DeviceComm per (mesh devices, placement): its ``axis_sizes``
+        are the sub-mesh geometry, and its process groups are created once."""
+        key = (mesh_mod.mesh_ranks(mesh), placement.key())
+        comm = self._mesh_comms.get(key)
+        if comm is None:
+            comm = DeviceComm(self._submesh_for(mesh, placement))
+            self._mesh_comms[key] = comm
+        return comm
+
+    def _fn_for_group_mesh(self, sig, rep_rank: int,
+                           placement: GroupPlacement, mesh,
+                           noise: bool = False):
+        """The bound replay of one placed group over its DeviceComm, for
+        one state or a stack alike.  Cached per (signature, mesh devices,
+        placement, noise, state shapes); ``noise=True`` settles the
+        replicas' draws after the replay."""
+        key = (sig, noise, mesh_mod.mesh_ranks(mesh), placement.key(),
+               self._shapes_key())
+        fn = self._compiled_mesh.get(key)
+        if fn is None:
+            self._counters["batch_cache_misses"] += 1
+            mod = self.module
+            comm = self._mesh_comm(mesh, placement)
+
+            def fn(st, _rank=rep_rank):
+                out = mod.run_rank(st, comm, _rank)
+                return noise_mod.settle(out) if noise else out
+
+            self._compiled_mesh[key] = fn
+        else:
+            self._counters["batch_cache_hits"] += 1
+        return fn
+
+    def _group_work_mesh(self, ranks, seed: int, per_rank_seeds: bool,
+                         mesh, batched: bool = True,
+                         noise: NoiseConfig | None = None) -> list[tuple]:
+        """``(fn, input_state, group_ranks, stacked, member, src)`` units of
+        a mesh sweep, in plan order.
+
+        ``batched=True`` emits one unit per signature group: its ranks'
+        states stacked on a leading axis through the real collectives (or,
+        with a shared seed, the program once, its result shared).
+        ``batched=False`` is the sequential mesh baseline: one unit per
+        rank on the *same* placement.  ``noise=`` stacks seeded replicas
+        instead of ranks.  ``member`` says whether this process runs the
+        unit; ``src`` is the process that broadcasts its result."""
+        mesh_ranks = self._mesh_check(mesh)
+        me = dist.get_rank()
+        work = []
+        for pl in self.mesh_sweep_plan(mesh, ranks):
+            grp = list(pl.ranks)
+            procs = [mesh_ranks[i] for i in pl.device_ids]
+            unit = (me in procs, procs[0])
+            fn = self._fn_for_group_mesh(pl.sig, grp[0], pl, mesh,
+                                         noise=noise is not None)
+            if noise is not None:
+                work.append((fn, self._noise_group_state(grp[0], noise, seed),
+                             grp, False) + unit)
+            elif batched and per_rank_seeds:
+                stacked = stack_states([self.init_state(seed + r)
+                                        for r in grp])
+                work.append((fn, stacked, grp, True) + unit)
+            elif batched:
+                work.append((fn, self.init_state(seed), grp, False) + unit)
+            else:
+                for r in grp:
+                    st = self.init_state(seed + r if per_rank_seeds else seed)
+                    work.append((fn, st, [r], False) + unit)
+        return work
+
+    def _share(self, res: dict | None, template: dict, src: int) -> dict:
+        """Broadcast a unit's result from process ``src`` to every process:
+        its leaves' bytes in one buffer, rebuilt on the receivers from the
+        input state's shapes and dtypes (a replay keeps both)."""
+        keys = sorted(template)
+        if dist.get_rank() == src:
+            flat = torch.cat([res[k].contiguous().reshape(-1)
+                              .view(torch.uint8) for k in keys])
+        else:
+            n = sum(template[k].numel() * template[k].element_size()
+                    for k in keys)
+            flat = torch.empty(n, dtype=torch.uint8, device=self.device)
+        dist.broadcast(flat, src)
+        out, off = {}, 0
+        for k in keys:
+            t = template[k]
+            nb = t.numel() * t.element_size()
+            out[k] = flat[off:off + nb].clone().view(t.dtype).reshape(t.shape)
+            off += nb
+        return out
+
+    def _run_all_mesh(self, ranks, seed: int, batched: bool,
+                      per_rank_seeds: bool, mesh,
+                      noise: NoiseConfig | None = None) -> dict[int, dict]:
+        """Mesh-sharded sweep body: every process runs the units it is a
+        member of (placements on disjoint processes run at once), then each
+        unit's result is broadcast from its placement's first process, in
+        plan order, and unstacked."""
+        units = self._group_work_mesh(ranks, seed, per_rank_seeds, mesh,
+                                      batched, noise)
+        results = [fn(arg) if member else None
+                   for fn, arg, _, _, member, _ in units]
+        out: dict[int, dict] = {}
+        for res, (_, arg, grp, stacked, _, src) in zip(results, units):
+            res = self._share(res, arg, src)
+            if stacked:
+                for i, r in enumerate(grp):
+                    out[r] = {k: v[i] for k, v in res.items()}
+            else:
+                for r in grp:
+                    out[r] = dict(res)
+        self._sync()
+        return out
+
     def run_local(self, ranks: Sequence[int] | None = None, seed: int = 0,
                   comm=None) -> dict:
         """Replay ranks sequentially; returns the final state of the last."""
@@ -237,7 +565,7 @@ class ProxyProgram:
 
     def run_all(self, ranks: Sequence[int] | None = None, seed: int = 0,
                 comm=None, batched: bool = True,
-                per_rank_seeds: bool = False,
+                per_rank_seeds: bool = False, mesh=None,
                 noise: NoiseConfig | None = None) -> dict[int, dict]:
         """Replay every rank; returns ``{rank: final state}``.
 
@@ -249,6 +577,17 @@ class ProxyProgram:
         from ``seed + rank``, the group's states are stacked on a leading
         axis and replayed in one pass.  ``batched=False`` is the per-rank
         baseline with identical results.
+
+        ``mesh=`` (a :class:`~torch.distributed.device_mesh.DeviceMesh`,
+        :func:`~repro_torch.launch.mesh.make_replay_mesh`) switches to the
+        **mesh-sharded sweep**: signature groups are placed on disjoint
+        device subsets (:meth:`mesh_sweep_plan`) and execute their real
+        collectives through :class:`DeviceComm`.  Every process of the
+        world calls it with the same arguments (SPMD: the results are
+        broadcast over the default process group, so a process outside the
+        mesh calls it too) and gets every rank's state.  ``comm`` is ignored in mesh mode; ``batched=False`` gives
+        the sequential mesh baseline (one pass per rank on the same
+        placement).  Without an initialized process group it raises.
 
         ``noise=NoiseConfig(...)`` replays ``n_replicas`` seeded noisy
         replicas of each group, stacked on a leading axis in one pass
@@ -262,6 +601,9 @@ class ProxyProgram:
         if ranks is not None:
             self._validate_ranks(ranks)
         _check_noise(noise, batched, per_rank_seeds)
+        if mesh is not None:
+            return self._run_all_mesh(ranks, seed, batched, per_rank_seeds,
+                                      mesh, noise)
         comm = comm or LocalSim()
         out: dict[int, dict] = {}
         if not batched:
@@ -319,18 +661,40 @@ class ProxyProgram:
                 work.append((fn, st, grp))
         return work
 
+    def time_local(self, rank: int = 0, iters: int = 1, seed: int = 0
+                   ) -> float:
+        """Warm wall-clock seconds of one rank's replay under ``LocalSim``
+        (synchronized with the card after each run; the first run warms
+        up)."""
+        self._validate_ranks([rank])
+        fn = self._fn_for_rank(rank, LocalSim())
+        st = self.init_state(seed)
+        fn(st)
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(st)
+            self._sync()
+        return (time.perf_counter() - t0) / iters
+
     def time_all(self, ranks: Sequence[int] | None = None, iters: int = 1,
                  seed: int = 0, batched: bool = True,
-                 per_rank_seeds: bool = False,
+                 per_rank_seeds: bool = False, mesh=None,
                  noise: NoiseConfig | None = None) -> float:
         """Warm wall-clock seconds of one full multi-rank replay sweep, in
         :meth:`run_all`'s modes, the noisy replicas among them (the states
-        are built before the clock)."""
+        are built before the clock).  With ``mesh=``, each process times
+        the placements it runs, and the sweep ends at a barrier of every
+        process of the world, so each calls it (no result is broadcast)."""
         ranks = list(range(self.merged.n_ranks) if ranks is None else ranks)
         self._validate_ranks(ranks)
         _check_noise(noise, batched, per_rank_seeds)
         comm = LocalSim()
-        if batched:
+        if mesh is not None:
+            work = [(fn, arg) for fn, arg, _, _, member, _ in
+                    self._group_work_mesh(ranks, seed, per_rank_seeds, mesh,
+                                          batched, noise) if member]
+        elif batched:
             work = [(fn, arg) for fn, arg, _ in
                     self._group_work(ranks, seed, comm, per_rank_seeds,
                                      noise)]
@@ -344,6 +708,8 @@ class ProxyProgram:
             for fn, arg in work:
                 fn(arg)
             self._sync()
+            if mesh is not None:
+                dist.barrier()
 
         sweep()  # warm-up (first use builds the kernels)
         t0 = time.perf_counter()
@@ -352,9 +718,12 @@ class ProxyProgram:
         return (time.perf_counter() - t0) / iters
 
     def cache_stats(self) -> dict[str, int]:
-        """Bound-program and walker-measurement counters."""
+        """Bound-program and walker-measurement counters; the mesh sweep's
+        bound programs count per placement (``batch_cache_hits`` and
+        ``batch_cache_misses``)."""
         return dict(self._counters,
                     compiled_per_rank=len(self._compiled),
+                    compiled_mesh=len(self._compiled_mesh),
                     cached_metric_groups=len(self._metrics_cache))
 
     # -- measurement -------------------------------------------------------------
@@ -373,32 +742,71 @@ class ProxyProgram:
         self._metrics_cache[key] = out
         return out
 
+    def group_program_sizes(self) -> dict[tuple, int]:
+        """The program's own size per signature group: the table entries
+        the group's ``run_rank`` walks (its symbol sequence, the body of
+        every rule it reaches, and every terminal it reaches, each entry
+        once) plus the lines of the generated source.
+
+        The reference's :meth:`group_eqn_counts` counts the jaxpr equations
+        of a group's traced executable, which is O(grammar) for the table
+        flavor and grows with the trace for the unrolled one.  Eager PyTorch
+        has no traced executable (its launches grow with the trace by
+        design), so the port measures what the executable would be built
+        from: the same grammar entries for both flavors, and the source,
+        which the unrolled flavor spells out one function per entry."""
+        from repro_torch.core.codegen import _main_runs
+        runs = _main_runs(self.merged)
+        lines = self.source.count("\n") + 1
+        out: dict[tuple, int] = {}
+        for sig, _grp in self.signature_groups():
+            seq = [sym for ci, run_ids in sig for i in run_ids
+                   for sym in runs[ci][i][1]]
+            rules: set[int] = set()
+            terms: set[int] = set()
+            todo = list(seq)
+            while todo:
+                kind, ref, _exp = todo.pop()
+                if kind == "t":
+                    terms.add(int(ref))
+                elif int(ref) not in rules:
+                    rules.add(int(ref))
+                    todo.extend(self.merged.rules[int(ref)])
+            out[sig] = (len(seq) + sum(len(self.merged.rules[r])
+                                       for r in rules) + len(terms) + lines)
+        return out
+
     def expand_rank_ids(self, rank: int) -> list[int]:
         return self.merged.expand_rank(rank)
 
-    def _noise_totals(self, ranks: Sequence[int], cfg: NoiseConfig
-                      ) -> tuple[dict, dict]:
+    def _noise_totals(self, ranks: Sequence[int], cfg: NoiseConfig,
+                      mesh=None) -> tuple[dict, dict]:
         """Executed perturbed cost totals per rank: ``(compute, comm_bytes)``
         with ``compute[r]`` the ``(n_replicas, 6)`` float64 accumulator
         matrix and ``comm_bytes[r]`` the ``(n_replicas,)`` perturbed
         collective bytes.  The walker cannot see runtime randomness, so the
-        noisy path executes the replicas and reads the accumulators."""
-        pending = [(fn(arg), grp) for fn, arg, grp in
-                   self._group_work(ranks, 0, LocalSim(), False, cfg)]
-        compute: dict[int, np.ndarray] = {}
-        comm_bytes: dict[int, np.ndarray] = {}
-        for res, grp in pending:
-            acc = res[noise_mod.NOISE_COMPUTE].cpu().numpy()
-            cb = res[noise_mod.NOISE_COMM].cpu().numpy()
-            for r in grp:       # replicas are group-level; ranks share them
-                compute[r] = acc
-                comm_bytes[r] = cb
+        noisy path executes the replicas (under LocalSim, or the mesh sweep
+        with ``mesh=``) and reads the accumulators."""
+        if mesh is not None:
+            states = self._run_all_mesh(ranks, 0, True, False, mesh, cfg)
+        else:
+            states = {}
+            for fn, arg, grp in self._group_work(ranks, 0, LocalSim(), False,
+                                                 cfg):
+                res = fn(arg)
+                for r in grp:   # replicas are group-level; ranks share them
+                    states[r] = res
+        compute = {r: st[noise_mod.NOISE_COMPUTE].cpu().numpy()
+                   for r, st in states.items()}
+        comm_bytes = {r: st[noise_mod.NOISE_COMM].cpu().numpy()
+                      for r, st in states.items()}
         return compute, comm_bytes
 
     def fidelity(self, original_rank_traces: Sequence[Sequence[Event]],
                  original_rank_keys: Sequence[Sequence[str]] | None = None,
                  sample_ranks: int | None = None,
-                 batched: bool = True, noise: NoiseConfig | None = None,
+                 batched: bool = True, mesh=None,
+                 noise: NoiseConfig | None = None,
                  ) -> "FidelityReport | FidelityDistribution":
         """Compare proxy vs original per rank (paper §3.3.1).
 
@@ -409,12 +817,20 @@ class ProxyProgram:
         original event *key* sequence exactly (losslessness).
         ``batched=False`` re-walks every rank (the parity baseline).
 
+        ``mesh=`` also runs one mesh-sharded sweep (real collectives through
+        :class:`DeviceComm`) and records in ``report.mesh_checked`` whether
+        every leaf came back finite.  δ̄ itself is placement-invariant (the
+        walker's metrics are keyed by signature and state shapes), so mesh
+        and local reports carry bit-identical deltas.
+
         ``noise=NoiseConfig(...)`` returns a
         :class:`~repro_torch.core.noise.FidelityDistribution` instead: the
         proxy side becomes the *executed* perturbed-cost accumulators of
         ``n_replicas`` seeded replicas, each replica's δ matrix computed
-        against the same original totals.  A fixed ``(seed, n_replicas)``
-        reproduces bit for bit on one device.  The σ→0 limit of the
+        against the same original totals (``mesh=`` executes them in the
+        mesh sweep).  A fixed ``(seed, n_replicas)`` reproduces bit for bit
+        on one device, under LocalSim and the mesh alike (replica keys come
+        from logical ids, and the accumulators never read a buffer).  The σ→0 limit of the
         executed totals tracks, but is not bit-equal to, the walker's (the
         accumulators sum ``combo_cost`` per occurrence and charge no loop
         bookkeeping), so the bit-parity contract binds only the
@@ -446,7 +862,7 @@ class ProxyProgram:
                     if not is_comm(ev):
                         a[:, col] += ev.vector
         if noise is not None:
-            compute, comm_b = self._noise_totals(ranks, noise)
+            compute, comm_b = self._noise_totals(ranks, noise, mesh)
             bn = np.stack([compute[r] for r in ranks], axis=2)
             replica_delta = np.stack(
                 [proxy_search.rel_error_matrix(a, bn[j])
@@ -455,12 +871,21 @@ class ProxyProgram:
             return FidelityDistribution(
                 replica_delta=replica_delta, comm_bytes=cb,
                 ranks=tuple(ranks), seed=noise.seed,
-                n_replicas=noise.n_replicas, comm_lossless=lossless)
+                n_replicas=noise.n_replicas, comm_lossless=lossless,
+                mesh_checked=mesh is not None and bool(
+                    np.isfinite(bn).all() and np.isfinite(cb).all()))
         b = np.stack([self.rank_metrics(r, use_cache=batched) for r in ranks],
                      axis=1)
         delta = proxy_search.rel_error_matrix(a, b)
+        mesh_checked = False
+        if mesh is not None:
+            states = self._run_all_mesh(ranks, 0, True, False, mesh)
+            mesh_checked = all(bool(torch.isfinite(leaf.float()).all())
+                               for st in states.values()
+                               for leaf in st.values())
         return FidelityReport(delta=delta, comm_lossless=lossless,
-                              mean=float(delta.mean()))
+                              mean=float(delta.mean()),
+                              mesh_checked=mesh_checked)
 
 
 def _check_noise(noise: NoiseConfig | None, batched: bool,

@@ -69,9 +69,20 @@ class SynthesisResult:
     def source(self) -> str:
         return self.proxy.source
 
+    @property
+    def rank_traces(self) -> list[list[Event]]:
+        """Materialized per-rank event lists, from the store (built on first
+        use and kept: the pipeline itself never needs them)."""
+        cached = getattr(self, "_rank_traces_cache", None)
+        if cached is None:
+            cached = self.store.to_rank_traces()
+            self._rank_traces_cache = cached
+        return cached
+
     def fidelity(self, sample_ranks: int | None = 16, batched: bool = True,
-                 noise=None):
-        """δ̄ report against the columnar store (paper eq. 8);
+                 mesh=None, noise=None):
+        """δ̄ report against the columnar store (paper eq. 8); ``mesh=``
+        also runs the mesh-sharded sweep (``report.mesh_checked``);
         ``noise=NoiseConfig(...)`` returns the seeded
         :class:`~repro_torch.core.noise.FidelityDistribution` instead (see
         :meth:`repro_torch.core.replay.ProxyProgram.fidelity`)."""
@@ -79,7 +90,7 @@ class SynthesisResult:
                 for g, ids in zip(self.grammars, self.rank_ids)]
         return self.proxy.fidelity(self.store, keys,
                                    sample_ranks=sample_ranks, batched=batched,
-                                   noise=noise)
+                                   mesh=mesh, noise=noise)
 
 
 def compress_rank_traces(rank_traces: Sequence[Sequence[Event]],

@@ -13,23 +13,32 @@ Two roles:
    collective equation; under a :class:`~repro_torch.core.tracer.
    TraceSession` it emits to every rank of the session.  On a meta tensor
    it returns a meta tensor of the collective's per-rank output shape, with
-   axis sizes from the walker (or session).  A real tensor has no mesh to
-   run on until the port's mesh slice (ROADMAP item 11): the wrapper raises
-   rather than hand back its input as if the collective had run.
+   axis sizes from the walker (or session).  Running a traced program's
+   collectives on real tensors is the distributed trainer's (ROADMAP,
+   queue 1, item 11's trainer half): until then the wrapper raises rather
+   than hand back its input as if the collective had run.
 
-2. **Replay comm backends** for generated proxy-apps: :class:`LocalSim`.
-   The mesh backend (``DeviceComm`` over ``torch.distributed``) waits for
-   the mesh slice.
+2. **Replay comm backends** for generated proxy-apps:
+   * :class:`LocalSim`: a sequence point per collective, for one process;
+   * :class:`DeviceComm`: the recorded collective itself, over the process
+     groups of a mesh placement (:class:`~repro_torch.launch.mesh.Submesh`)
+     on ``torch.distributed``: NCCL for CUDA tensors, gloo for CPU ones.
+
+Every backend folds the collective's result back into the fixed-shape pool
+buffer, so a replay state keeps its shapes and dtypes through ``do``.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import tracer as _tracer
-from repro_torch.core.events import CommEvent
-from repro_torch.core.metrics import dtype_name
+from repro_torch.core.events import CommEvent, decode_relative_perm
+from repro_torch.core.metrics import dtype_name, torch_dtype
+from repro_torch.launch.mesh import check_tensor_backend
 
 # ---------------------------------------------------------------------------
 # instrumented wrappers
@@ -62,10 +71,12 @@ def _collective(kind: str, x: torch.Tensor, axes, detail: tuple,
     axes_t = _axes(axes)
     if x.device.type != "meta":
         raise NotImplementedError(
-            f"{kind} on a {x.device.type} tensor: a collective needs the "
-            "mesh backend, which waits for the port's mesh slice (ROADMAP "
-            "item 11); trace the program with trace_fn or synthesize(fn, "
-            "..., axis_sizes=...), which run it on meta tensors")
+            f"{kind} on a {x.device.type} tensor: running a traced "
+            "program's collectives on a mesh waits for the distributed "
+            "trainer (ROADMAP, queue 1, item 11's trainer half); trace the "
+            "program with trace_fn or synthesize(fn, ..., axis_sizes=...), "
+            "which run it on meta tensors, and replay its proxy on a mesh "
+            "with ProxyProgram.run_all(mesh=...)")
     shape = tuple(out_shape(_axis_size(axes_t)))
     ev = CommEvent(kind=kind, shape=tuple(int(s) for s in x.shape),
                    dtype=dtype_name(x.dtype),
@@ -172,3 +183,188 @@ class LocalSim:
         if buf not in st:
             raise KeyError(f"comm buffer {buf!r} missing from the replay state")
         return dict(st)
+
+
+_REDUCE_OPS = {"psum": "SUM", "pmax": "MAX", "pmin": "MIN"}
+
+
+class DeviceComm:
+    """Mesh replay: executes the recorded collective over ``torch.distributed``.
+
+    ``submesh`` is a placement's process groups
+    (:class:`~repro_torch.launch.mesh.Submesh`), and its ``axis_sizes`` the
+    sub-mesh geometry.  The payload fed to the collective has exactly the
+    traced shape and dtype; the result is folded back into the pool buffer
+    (mean over a gathered dim, tiles of a scattered one), so the shape *and*
+    dtype of ``st[buf]`` are the same after ``do`` for every kind, as in
+    the reference.  Per kind, as the reference defines them:
+
+    * ``psum``, ``pmax``, ``pmin``: ``all_reduce``; ``psum`` divided by the
+      group's size;
+    * ``all_gather``: gather, then the float32 mean over the gathered dim,
+      cast back;
+    * ``reduce_scatter``: ``reduce_scatter_tensor`` over the scatter dim,
+      tiled back and divided by the size; where the dim does not divide,
+      ``all_reduce`` divided by the size;
+    * ``all_to_all``: a tiled ``all_to_all_single`` on the split dim,
+      concatenated on the concat dim and reshaped to the traced shape;
+      where the split dim does not divide, a ring ``ppermute``;
+    * ``ppermute``: ``batch_isend_irecv`` of :func:`_detail_to_perm`'s
+      pairs (device indices in mesh order, wrapped at the group's size, as
+      JAX lowers them); a self pair is a local copy, and a device no pair
+      sends to receives zeros;
+    * ``broadcast``: gather, then element ``[0]``.
+
+    **Stacked states.**  The reference ``vmap``-s a group's stacked states
+    through the collective.  Here ``do`` compares ``st[buf]`` with the
+    traced shape: a buffer with a leading axis beyond it (a group replayed
+    with ``per_rank_seeds``, or noisy replicas) runs **one** collective on
+    the whole stack, its split, concat, scatter and gather dims shifted by
+    one, with the same bits per member as one collective each wherever the
+    reduction's sums are exact (a ring all-reduce may order an inexact sum
+    by the buffer's size).
+
+    NCCL runs CUDA tensors and gloo CPU tensors; a tensor of the other
+    device raises (:func:`~repro_torch.launch.mesh.check_tensor_backend`).
+    """
+
+    def __init__(self, submesh):
+        self.submesh = submesh
+        self.axis_sizes = dict(submesh.axis_sizes)
+
+    def do(self, st: dict, buf: str, *, kind: str, axes, detail, shape, dtype):
+        st = dict(st)
+        cur = st[buf]
+        shape = tuple(int(s) for s in shape)
+        n = math.prod(shape)
+        lead = 0 if cur.numel() == n else 1
+        if lead and (cur.dim() == 0 or cur.numel() != cur.shape[0] * n):
+            raise ValueError(f"pool buffer {buf!r} of {tuple(cur.shape)} "
+                             f"holds no whole payloads of {shape}")
+        pshape = shape if not lead else (int(cur.shape[0]),) + shape
+        x = cur.to(torch_dtype(dtype)).reshape(pshape)
+        pg, members = self.submesh.group(axes)
+        check_tensor_backend(self.submesh.backend, x.device)
+        if kind in _REDUCE_OPS:
+            y = x.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(y, getattr(dist.ReduceOp, _REDUCE_OPS[kind]),
+                            group=pg)
+            if kind == "psum":
+                size = math.prod(self.axis_sizes[a] for a in axes)
+                y = y / max(size, 1)
+        elif kind == "all_gather":
+            g = _gather(x, pg, members)
+            y = torch.mean(g.to(torch.float32), dim=0).to(x.dtype)
+        elif kind == "reduce_scatter":
+            dim = (int(detail[0]) if detail else 0) + lead
+            size = self.axis_sizes[axes[0]]
+            if shape[dim - lead] % size == 0:
+                xm = x.movedim(dim, 0).contiguous()
+                out = xm.new_empty((xm.shape[0] // len(members),)
+                                   + tuple(xm.shape[1:]))
+                dist.reduce_scatter_tensor(out, xm, dist.ReduceOp.SUM,
+                                           group=pg)
+                y = out.movedim(0, dim)
+                reps = [1] * y.dim()
+                reps[dim] = size
+                y = y.repeat(reps) / size
+            else:
+                y = x.clone(memory_format=torch.contiguous_format)
+                dist.all_reduce(y, dist.ReduceOp.SUM, group=pg)
+                y = y / size
+        elif kind == "all_to_all":
+            split, concat = ((int(detail[0]), int(detail[1]))
+                             if len(detail) >= 2 else (0, 0))
+            size = self.axis_sizes[axes[0]]
+            if shape[split] % size == 0:
+                y = _all_to_all(x, split + lead, concat + lead, pg, members)
+                y = _reshape_back(y, pshape)
+            else:
+                y = _ppermute(x, [(i, (i + 1) % size) for i in range(size)],
+                              pg, members)
+        elif kind == "ppermute":
+            size = self.axis_sizes[axes[0]]
+            y = _ppermute(x, _detail_to_perm(detail, size), pg, members)
+        elif kind == "broadcast":
+            y = _gather(x, pg, members)[0]
+        else:
+            raise ValueError(f"unknown collective kind {kind!r}")
+        st[buf] = y.reshape(cur.shape).to(cur.dtype)
+        return st
+
+
+def _group_order(members: Sequence[int]) -> list[int]:
+    """Group rank of each member: ``torch.distributed`` numbers a group's
+    ranks in sorted order, the collective's own index runs over
+    ``members``."""
+    ordered = sorted(members)
+    return [ordered.index(m) for m in members]
+
+
+def _gather(x: torch.Tensor, pg, members) -> torch.Tensor:
+    """(group size, *x.shape): every member's ``x``, in member order."""
+    out = x.new_empty(len(members) * x.numel())
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=pg)
+    out = out.reshape((len(members),) + tuple(x.shape))
+    order = _group_order(members)
+    return out if order == sorted(order) else out[order]
+
+
+def _all_to_all(x: torch.Tensor, split: int, concat: int, pg,
+                members) -> torch.Tensor:
+    """``lax.all_to_all(tiled=True)``: chunk ``k`` of ``split`` goes to
+    member ``k``; the chunks received are concatenated on ``concat`` in
+    member order."""
+    g = len(members)
+    order = _group_order(members)
+    xm = x.movedim(split, 0)
+    chunks = xm.reshape((g, xm.shape[0] // g) + tuple(xm.shape[1:]))
+    send = chunks.new_empty(chunks.shape)      # contiguous
+    send[order] = chunks                       # chunk k to group rank order[k]
+    recv = send.new_empty(send.shape)
+    dist.all_to_all_single(recv, send, group=pg)
+    r = recv[order]                            # r[k]: from member k
+    r = r.movedim(1, split + 1).movedim(0, concat)
+    s = list(r.shape)
+    return r.reshape(s[:concat] + [s[concat] * s[concat + 1]] + s[concat + 2:])
+
+
+def _ppermute(x: torch.Tensor, perm, pg, members) -> torch.Tensor:
+    """``lax.ppermute``: device ``src`` sends to device ``dst`` for each
+    pair; a device no pair sends to gets zeros.  As in JAX's lowering, the
+    indices count the group's devices in mesh order (whatever the order of
+    the axes named) and wrap at the group's size."""
+    ordered = sorted(members)
+    g = len(ordered)
+    me = ordered.index(dist.get_rank())
+    perm = [(int(s) % g, int(d) % g) for s, d in perm]
+    if len({s for s, _ in perm}) < len(perm) or \
+            len({d for _, d in perm}) < len(perm):
+        raise ValueError(f"ppermute sources and destinations must be "
+                         f"unique, got {perm}")
+    x = x.contiguous()
+    y = torch.zeros_like(x)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            y = x.clone()
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, x, ordered[dst], pg))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, y, ordered[src], pg))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return y
+
+
+def _reshape_back(y, shape):
+    return y.reshape(shape) if y.numel() == math.prod(shape) else y
+
+
+def _detail_to_perm(detail: tuple, size: int) -> list[tuple[int, int]]:
+    if detail and detail[0] in ("shift", "perm", "empty"):
+        return decode_relative_perm(detail, size)
+    if detail and detail[0] == "rawperm":
+        return [tuple(p) for p in detail[1]]
+    return [(i, (i + 1) % size) for i in range(size)]

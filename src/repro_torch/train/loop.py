@@ -33,8 +33,8 @@ from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.data import Prefetcher, TokenDataset
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 
-MESH_SLICE = ("the port's mesh slice (ROADMAP, queue 1, items 11 and 13: "
-              "torch.distributed and DTensor placements)")
+MESH_SLICE = ("the port's mesh slice of the trainer (ROADMAP, queue 1, "
+              "item 11's trainer half, then item 12: DTensor placements)")
 
 
 @dataclasses.dataclass(frozen=True)

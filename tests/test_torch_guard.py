@@ -111,6 +111,39 @@ def test_the_corpus_tier_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
 
 
+def test_the_mesh_tier_and_the_examples_run_without_jax():
+    """``launch/mesh.py``, ``DeviceComm`` and the mesh sweep on a
+    one-process gloo group, and an example script, with JAX unimportable
+    and nothing of the reference loaded."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.core.replay import submesh_axis_sizes\n"
+        "from repro_torch.core.synthesize import synthesize\n"
+        "from repro_torch.core.trace_ir import TraceStore\n"
+        "from repro_torch.launch.mesh import make_replay_mesh\n"
+        "from repro_torch.workloads import synthetic_rank_traces\n"
+        "st = TraceStore.from_rank_traces(synthetic_rank_traces(4, reps=4),\n"
+        "                                 {'x': 4})\n"
+        "res = synthesize(store=st, device='cpu')\n"
+        "dist.init_process_group('gloo', store=dist.HashStore(), rank=0,\n"
+        "                        world_size=1)\n"
+        "mesh = make_replay_mesh(submesh_axis_sizes(1, {'x': 4}))\n"
+        "assert sorted(res.proxy.run_all(mesh=mesh)) == [0, 1, 2, 3]\n"
+        "dist.destroy_process_group()\n"
+        f"sys.argv = ['x', '--smoke', '--device', 'cpu']\n"
+        f"runpy.run_path({str(ROOT / 'examples' / 'torch_pipeline_proxy.py')!r},\n"
+        "               run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m == 'repro' or\n"
+        "             m.startswith(('repro.', 'jax')) and sys.modules[m])\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def _imports(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
@@ -121,7 +154,8 @@ def _imports(path: Path) -> set[str]:
     return names
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports_in_source(path):
     for name in _imports(path):

@@ -47,13 +47,16 @@ def save_arrays(path, arrays):
 BF16_TAG = "@bfloat16"
 
 
-def run_reference(code: str, out_dir: Path, timeout: float = 300) -> dict:
+def run_reference(code: str, out_dir: Path, timeout: float = 300,
+                  env: dict | None = None) -> dict:
     """Run ``code`` against the JAX package in a subprocess.
 
     ``code`` sees ``OUT`` (a :class:`~pathlib.Path`) and writes its
     results there as ``.npz`` or ``.json`` files; returns ``{stem: data}``.
     ``save_arrays(path, dict)`` writes an ``.npz`` that keeps bfloat16
-    arrays (they come back as numpy ``bfloat16``).
+    arrays (they come back as numpy ``bfloat16``).  ``env`` adds variables
+    to the subprocess's environment, set before anything imports JAX (e.g.
+    ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` for a mesh).
     Raises with the subprocess's output if it fails."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -62,7 +65,7 @@ def run_reference(code: str, out_dir: Path, timeout: float = 300) -> dict:
                       "from pathlib import Path\n"
                       f"OUT = Path({str(out_dir)!r})\n"
                       + textwrap.dedent(code))
-    env = dict(os.environ)
+    env = dict(os.environ, **(env or {}))
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
     env["JAX_PLATFORMS"] = "cpu"

@@ -89,7 +89,16 @@ paths on the card, checking that each went through its kernels:
   example scripts at their published sizes (:func:`phase_examples`: the
   quickstart, whose delta_bar must equal the CPU's to 1e-12, the pipeline,
   serve-and-proxy, and ``torch_train_e2e.py --full``, whose loss must
-  drop).
+  drop);
+- slice 12: data-parallel training (:func:`phase_dp_train`) on a
+  one-process NCCL group: Llama 3.2 3B at full width, 4 x 2048, through
+  ``Trainer(mesh=make_dp_mesh(1))`` bit-equal to ``Trainer(None)`` and
+  through the int8 error-feedback ``make_manual_dp_train_step`` (56
+  ``flash_fwd`` and 28 ``flash_bwd`` a step, one int32 all-reduce a
+  parameter leaf, its falling loss, step ms, peak memory and the
+  compression's ms); the smoke Llama's DP steps and mesh trainer on the
+  card against the same code on the CPU under gloo, with a bit-identical
+  crash/resume; and each instrumented collective wrapper on a CUDA tensor.
 
 Then it times every kernel against its plain version, its bound and, where
 one PyTorch call computes the same function, that call; for the two
@@ -2964,6 +2973,375 @@ def phase_train(dev, errs: dict) -> tuple[dict, dict]:
     return rows, timing
 
 
+#: slice 12's smoke cells: the Llama smoke at 2 × 1024 tokens (attention
+#: through flash on the card), card against the CPU under a one-process
+#: group of each backend
+DP_SMOKE_ARCH, DP_SMOKE_BATCH, DP_SMOKE_SEQ = "llama3.2-3b", 2, 1024
+#: steps of the full-width mesh trainer against the single-device one
+DP_BIT_STEPS = 2
+#: steps of the full-width int8 DP step, on one fixed batch (warmup 1)
+DP_INT8_STEPS = 3
+#: the DP train level, card against CPU (tests/test_torch_dp_train.py's
+#: limits against the JAX reference): the loss within 1e-5 relative, each
+#: parameter leaf within 1e-4 of its largest value
+DP_PARAM_RTOL = 1e-4
+#: the norm of an int8 step's reduced gradient, relative, card against CPU
+DP_GRAD_NORM_RTOL = 1e-4
+
+
+def _dp_smoke(dev, base: Path) -> dict:
+    """The smoke cells on ``dev`` under the current one-process group: two
+    int8 DP steps (their losses, weights, error states, the norms of their
+    reduced gradients and each leaf's quantum at the last step) and a mesh
+    trainer's 4 steps (with a crash/resume that must equal them bit for
+    bit), all from the same CPU-drawn weights."""
+    import repro_torch.train.loop as loop_mod
+    from repro_torch.configs import get, smoke
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model import init_params
+    from repro_torch.train.compression import init_error_state
+    from repro_torch.train.data import TokenDataset
+    from repro_torch.train.loop import (
+        Trainer, _InjectedFailure, make_manual_dp_train_step,
+    )
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = smoke(get(DP_SMOKE_ARCH))
+    init = init_params(cfg, 0, "cpu")
+    out = {}
+    params = tree_map(lambda t: t.to(dev, copy=True), init)
+    opt, err = adamw_init(params), init_error_state(params)
+    step = make_manual_dp_train_step(cfg, make_dp_mesh(1))
+    ds = TokenDataset(cfg.vocab, DP_SMOKE_SEQ, DP_SMOKE_BATCH, seed=3)
+    real = loop_mod.compressed_psum
+    quanta = []
+
+    def quantum(x, group, e):          # the leaf's scale, before the update
+        quanta.append(float((e + x.float()).abs().max()) / 127.0)
+        return real(x, group, e)
+
+    reset_counts()
+    losses, norms = [], []
+    loop_mod.compressed_psum = quantum
+    try:
+        for i in range(2):
+            quanta.clear()
+            params, opt, err, m = step(params, opt, err, ds.batch_at(i))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    finally:
+        loop_mod.compressed_psum = real
+    out["manual_launches"] = read_counts()
+    out["manual"] = (losses, [t.cpu() for t in tree_leaves(params)],
+                     [t.cpu() for t in tree_leaves(err)], norms, quanta)
+    logs, final = {}, {}
+    reset_counts()
+    for name in ("plain", "crash"):
+        t = Trainer(cfg, make_dp_mesh(1), global_batch=DP_SMOKE_BATCH,
+                    seq_len=DP_SMOKE_SEQ, ckpt_dir=base / name)
+        t.params = tree_map(lambda x: x.to(t.device, copy=True), init)
+        t.opt_state = adamw_init(t.params)
+        crashed = []
+
+        def inject(s):
+            if name == "crash" and s == 3 and not crashed:
+                crashed.append(s)
+                raise _InjectedFailure("simulated node loss")
+
+        log = t.run(4, ckpt_every=2, failure_injector=inject)
+        logs[name] = {m["step"]: m["loss"] for m in log}
+        final[name] = [x.cpu() for x in tree_leaves(t.params)] + \
+            [x.cpu() for x in tree_leaves(t.opt_state)]
+        if name == "crash" and not crashed:
+            fail("dp_train smoke: the failure was not injected")
+    out["trainer_launches"] = read_counts()
+    out["trainer"] = ([logs["plain"][s] for s in range(4)],
+                      final["plain"][:len(tree_leaves(init))])
+    out["crash_same"] = (logs["plain"] == logs["crash"] and all(
+        torch.equal(a, b) for a, b in zip(final["plain"], final["crash"])))
+    return out
+
+
+def _dp_close(what: str, got: tuple, want: tuple) -> float:
+    """Losses and parameter leaves at the DP train level."""
+    worst = 0.0
+    for a, b in zip(got[0], want[0]):
+        if not abs(a - b) <= TRAIN_LOSS_RTOL * abs(b):
+            fail(f"dp_train smoke {what}: losses {got[0]} against the "
+                 f"CPU's {want[0]}")
+    for i, (a, b) in enumerate(zip(got[1], want[1])):
+        top = float(b.abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        if not err <= DP_PARAM_RTOL * top:
+            fail(f"dp_train smoke {what}: leaf {i} differs by {err} "
+                 f"(largest {top})")
+        worst = max(worst, err / top if top else 0.0)
+    return worst
+
+
+def _dp_wrappers(dev) -> list[str]:
+    """Each instrumented wrapper kind on a CUDA tensor over a group of one,
+    against its plain semantics there; a CPU tensor under NCCL raises."""
+    from repro_torch.launch.mesh import make_replay_mesh
+    from repro_torch.sharding import collectives as C
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((4, 6, 8), generator=g, device=dev)
+    s = x[:1]                                     # a dim of the group's size
+    with C.bind_mesh(make_replay_mesh({"x": 1})):
+        cases = {
+            "psum": (C.psum(x, "x"), x),
+            "pmax": (C.pmax(x, "x"), x),
+            "all_gather": (C.all_gather(x, "x", gather_dim=1), x[:, None]),
+            "all_gather tiled": (C.all_gather(x, "x", gather_dim=2,
+                                              tiled=True), x),
+            "psum_scatter": (C.psum_scatter(x, "x", scatter_dim=1), x),
+            "psum_scatter untiled": (C.psum_scatter(s, "x", tiled=False),
+                                     s[0]),
+            "all_to_all": (C.all_to_all(x, "x", 0, 2), x),
+            "all_to_all untiled": (C.all_to_all(s, "x", 0, 2, tiled=False),
+                                   s.movedim(0, 2)),
+            "ppermute": (C.ppermute(x, "x", [(0, 0)]), x),
+            "ppermute empty": (C.ppermute(x, "x", []), torch.zeros_like(x)),
+        }
+        for name, (got, want) in cases.items():
+            if not (got.device == x.device and got.shape == want.shape
+                    and torch.equal(got, want)):
+                fail(f"dp_train: the {name} wrapper on a CUDA tensor differs "
+                     "from its plain semantics over one rank")
+        other = torch.ones(3, device="cpu" if x.is_cuda else "meta")
+        if x.is_cuda:
+            try:
+                C.psum(other, "x")
+            except RuntimeError as e:
+                if "stages nothing" not in str(e):
+                    raise
+            else:
+                fail("dp_train: a CPU tensor under NCCL did not raise")
+    return sorted(cases)
+
+
+def phase_dp_train(dev) -> dict:
+    """Slice 12: data-parallel training on a one-process NCCL group (started
+    in process on a HashStore, as phase_mesh's): (a) at full width, Llama
+    3.2 3B at 4 × 2048 in bf16, Trainer(mesh=make_dp_mesh(1)) for 2 steps
+    equal to Trainer(None) bit for bit in every parameter leaf, 56
+    flash_fwd and 28 flash_bwd a step each; (b) at full width,
+    make_manual_dp_train_step for 3 steps on one batch: finite, falling
+    loss, the same launches a step, one int32 all-reduce a parameter leaf;
+    its step ms and peak GiB, and quantize + all-reduce + dequantize of
+    every leaf timed apart (and the all-reduces alone); (c) the smoke Llama
+    at 2 × 1024: the card's int8 DP steps and mesh trainer against the same
+    code on the CPU under a one-process gloo group, at the DP train level,
+    the int8 steps' error states within one quantum a leaf and the norms
+    of their reduced gradients within 1e-4 relative, and the card's mesh
+    crash/resume bit-identical; (d) each instrumented
+    wrapper kind on a CUDA tensor.  Destroys its groups at the end."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.launch.mesh import make_dp_mesh
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.compression import compressed_psum, init_error_state
+    from repro_torch.train.data import TokenDataset
+    from repro_torch.train.loop import Trainer, make_manual_dp_train_step
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    base = ROOT / "build" / "chip_smoke" / "dp_train"
+    shutil.rmtree(base, ignore_errors=True)
+    row = {"card": CARD}
+    t0 = time.perf_counter()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        cpu = _dp_smoke("cpu", base / "cpu")
+    finally:
+        dist.destroy_process_group()
+    row["smoke_cpu_s"] = time.perf_counter() - t0
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        # (a) the mesh trainer against the single-device one, full width
+        cfg = get("llama3.2-3b")
+        want = train_launches(cfg)
+        kw = dict(global_batch=TRAIN_BATCH, seq_len=2048, seed=0)
+        torch.cuda.empty_cache()
+        reset_counts()
+        t = Trainer(cfg, make_dp_mesh(1), ckpt_dir=base / "mesh", **kw)
+        mesh_log = t.run(DP_BIT_STEPS)
+        launches_mesh = read_counts()
+        mesh_params = t.params
+        del t
+        torch.cuda.empty_cache()
+        reset_counts()
+        t = Trainer(cfg, None, ckpt_dir=base / "single", device=dev, **kw)
+        single_log = t.run(DP_BIT_STEPS)
+        launches_single = read_counts()
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(mesh_params), tree_leaves(t.params)))
+        losses = ([m["loss"] for m in mesh_log],
+                  [m["loss"] for m in single_log])
+        print(f"dp_train: Trainer(mesh=make_dp_mesh(1)) against Trainer(None)"
+              f", Llama 3.2 3B 4 x 2048, {DP_BIT_STEPS} steps: losses "
+              f"{losses[0]} and {losses[1]}; every parameter leaf equal: "
+              f"{same}; step ms {[1e3 * m['sec'] for m in mesh_log]} and "
+              f"{[1e3 * m['sec'] for m in single_log]}; launches "
+              f"{json.dumps(launches_mesh)} and {json.dumps(launches_single)}")
+        if not same or losses[0] != losses[1]:
+            fail("dp_train: the one-process mesh trainer is not bit-equal to "
+                 "the single-device trainer")
+        for k, n in want.items():
+            for which, got in (("mesh", launches_mesh),
+                               ("single", launches_single)):
+                if got[k] != n * DP_BIT_STEPS:
+                    fail(f"dp_train {which} trainer launched {k} {got[k]} "
+                         f"times in {DP_BIT_STEPS} steps, not {n} a step")
+        row["bit_equal"] = same
+        row["trainer_losses"] = losses[0]
+        row["trainer_step_ms"] = [1e3 * m["sec"] for m in mesh_log]
+        row["single_step_ms"] = [1e3 * m["sec"] for m in single_log]
+        row["trainer_launches"] = launches_mesh
+
+        # (b) the int8 error-feedback DP step, full width, one fixed batch
+        params = t.params
+        del t, mesh_params
+        torch.cuda.empty_cache()
+        opt, err = adamw_init(params), init_error_state(params)
+        step = make_manual_dp_train_step(cfg, make_dp_mesh(1),
+                                         AdamWConfig(warmup_steps=1))
+        batch = TokenDataset(cfg.vocab, 2048, TRAIN_BATCH, seed=1).batch_at(0)
+        real = dist.all_reduce
+        reduced = []
+
+        def counting(tensor, *a, **k):
+            reduced.append(str(tensor.dtype).replace("torch.", ""))
+            return real(tensor, *a, **k)
+
+        n_leaves = len(tree_leaves(params))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        int8 = {"losses": [], "step_ms": [], "launches": [],
+                "int32_all_reduces": []}
+        dist.all_reduce = counting
+        try:
+            for _ in range(DP_INT8_STEPS):
+                reset_counts()
+                reduced.clear()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                params, opt, err, m = step(params, opt, err, batch)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+                int8["step_ms"].append(1e3 * (time.perf_counter() - t1))
+                int8["losses"].append(loss)
+                int8["launches"].append(read_counts())
+                int8["int32_all_reduces"].append(reduced.count("int32"))
+        finally:
+            dist.all_reduce = real
+        int8["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        int8["leaves"] = n_leaves
+        print(f"dp_train int8 step, Llama 3.2 3B 4 x 2048, one batch: "
+              f"losses {int8['losses']}; step ms {int8['step_ms']}; peak "
+              f"{int8['peak_gib']:.2f} GiB; int32 all-reduces a step "
+              f"{int8['int32_all_reduces']} ({n_leaves} leaves); launches "
+              f"{json.dumps(int8['launches'])}")
+        ls = int8["losses"]
+        if not (all(map(math.isfinite, ls))
+                and all(b < a for a, b in zip(ls, ls[1:]))):
+            fail(f"dp_train int8: losses {ls} not finite and falling")
+        for c in int8["launches"]:
+            if any(c[k] != n for k, n in want.items()):
+                fail(f"dp_train int8: launches {c}, not {want} a step")
+        if any(n != n_leaves for n in int8["int32_all_reduces"]):
+            fail(f"dp_train int8: {int8['int32_all_reduces']} int32 "
+                 f"all-reduces a step, not one a leaf ({n_leaves})")
+        # the compression alone: every leaf (the weights as stand-in
+        # gradients, bf16 as the step's are), then the all-reduces alone
+        leaves, errs = tree_leaves(params), tree_leaves(err)
+        times, ar = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for g, e in zip(leaves, errs):
+                compressed_psum(g, None, e)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t1))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for g in leaves:
+                buf = torch.empty(g.shape, dtype=torch.int32, device=dev)
+                dist.all_reduce(buf)
+                del buf
+            torch.cuda.synchronize()
+            ar.append(1e3 * (time.perf_counter() - t1))
+        int8["compression_ms"] = times
+        int8["all_reduce_alone_ms"] = ar
+        print(f"dp_train int8: quantize + int32 all-reduce + dequantize of "
+              f"every leaf {[round(x, 2) for x in times]} ms (the "
+              f"all-reduces with an allocation each, alone: "
+              f"{[round(x, 2) for x in ar]} ms) ({CARD})")
+        row["int8"] = int8
+        del params, opt, err, leaves, errs
+        torch.cuda.empty_cache()
+
+        # (c) the smoke cells, card against the CPU
+        gpu = _dp_smoke(dev, base / "cuda")
+        w_manual = _dp_close("manual int8 step", gpu["manual"][:2],
+                             cpu["manual"][:2])
+        # the error state within one quantum a leaf (the CPU's scale at the
+        # last step: a rounding may move by one step), and the norm of the
+        # reduced gradient, which the weights at warmup lr cannot show
+        diffs = [float((a - b).abs().max()) for a, b in
+                 zip(gpu["manual"][2], cpu["manual"][2])]
+        quanta = cpu["manual"][4]
+        if len(quanta) != len(diffs):
+            fail(f"dp_train smoke: {len(quanta)} quanta for {len(diffs)} "
+                 "error leaves")
+        for i, (d, q) in enumerate(zip(diffs, quanta)):
+            if not d <= q * (1 + 1e-3):
+                fail(f"dp_train smoke: error leaf {i} differs by {d}, more "
+                     f"than one quantum ({q})")
+        err_diff = max(d / q if q else 0.0 for d, q in zip(diffs, quanta))
+        for a, b in zip(gpu["manual"][3], cpu["manual"][3]):
+            if not abs(a - b) <= DP_GRAD_NORM_RTOL * b:
+                fail(f"dp_train smoke: reduced-gradient norms "
+                     f"{gpu['manual'][3]} against the CPU's "
+                     f"{cpu['manual'][3]}")
+        w_trainer = _dp_close("mesh trainer", gpu["trainer"], cpu["trainer"])
+        if not gpu["crash_same"]:
+            fail("dp_train smoke: the card's mesh crash/resume does not "
+                 "reproduce the uninterrupted run bit for bit")
+        for k in ("manual_launches", "trainer_launches"):
+            if gpu[k]["flash_fwd"] <= 0 or gpu[k]["flash_bwd"] <= 0:
+                fail(f"dp_train smoke: {k} {gpu[k]} went around flash")
+        print(f"dp_train smoke ({DP_SMOKE_ARCH} smoke, {DP_SMOKE_BATCH} x "
+              f"{DP_SMOKE_SEQ}) card against CPU: int8 losses "
+              f"{gpu['manual'][0]} and {cpu['manual'][0]}, worst leaf "
+              f"{w_manual:.3g} of its largest, error states within "
+              f"{err_diff:.3g} quanta, reduced-gradient norms "
+              f"{gpu['manual'][3]} and {cpu['manual'][3]}; mesh trainer "
+              f"losses {gpu['trainer'][0]} and "
+              f"{cpu['trainer'][0]}, worst leaf {w_trainer:.3g}; crash/resume "
+              f"bit-identical; launches {json.dumps(gpu['manual_launches'])}"
+              f", {json.dumps(gpu['trainer_launches'])}")
+        row["smoke"] = {"manual_worst_leaf": w_manual,
+                        "err_max_diff_quanta": err_diff,
+                        "grad_norms": [gpu["manual"][3], cpu["manual"][3]],
+                        "trainer_worst_leaf": w_trainer,
+                        "crash_resume_bit_identical": True}
+
+        # (d) the instrumented wrappers on CUDA tensors
+        row["wrappers"] = _dp_wrappers(dev)
+        print(f"dp_train: wrappers on CUDA tensors over one rank equal their "
+              f"plain semantics: {row['wrappers']}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(base, ignore_errors=True)
+    return row
+
+
 def launch_cost(tree: Path) -> dict:
     """Host microseconds per call (:func:`host_us`, LAUNCH_COST_CALLS calls
     a case) of the proxy-block wrappers of the checkout ``tree`` at the
@@ -3103,6 +3481,10 @@ def main() -> None:
     rows = phase_timings(dev, launches, errs)
     train, bwd = phase_train(dev, errs)
     print(json.dumps({"train": train}))
+    t0 = time.perf_counter()
+    dp_train = phase_dp_train(dev)
+    dp_train["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"dp_train": dp_train}))
     print(json.dumps({"shapes": phase_shape_timings(dev, errs, serve,
                                                      train)}))
     t0 = time.perf_counter()

@@ -9,8 +9,14 @@ over the family's smoke-config step functions on meta tensors:
 recorded through :class:`~repro_torch.core.tracer.TraceSession`.  Builders
 return columnar :class:`~repro_torch.core.trace_ir.TraceStore` traces.
 All five scenarios trace, and :func:`ingest_scenarios` streams them into a
-:class:`~repro_torch.core.corpus_store.CorpusStore`; the dry-run input
-specs wait for the sharding substrate (ROADMAP, queue 1, item 12).
+:class:`~repro_torch.core.corpus_store.CorpusStore`.
+
+:func:`rules_for` is a config's logical-axis rules (the defaults with the
+config's ``rules_overrides``); :func:`param_specs` and :func:`batch_specs`
+pair each parameter and batch array, as a meta tensor, with its
+:class:`~repro_torch.sharding.partition.PartitionSpec` on a mesh.  The
+decode-cache and dry-run input specs (``cache_specs``, ``input_specs``)
+wait for the sharding substrate (ROADMAP, queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -19,7 +25,10 @@ import importlib
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, smoke
+from repro_torch.configs.base import ArchConfig, RunShape, smoke
+from repro_torch.sharding.partition import (
+    LogicalRules, PartitionSpec, sharding_for_shape,
+)
 
 _MODULES = {
     "gemma3-4b": "gemma3_4b",
@@ -40,6 +49,58 @@ ARCH_IDS = tuple(_MODULES)
 def get(arch_id: str) -> ArchConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
+
+
+def rules_for(cfg: ArchConfig) -> LogicalRules:
+    rules = LogicalRules()
+    if cfg.rules_overrides:
+        rules = rules.with_overrides(**dict(cfg.rules_overrides))
+    return rules
+
+
+@dataclasses.dataclass(frozen=True)
+class MetaSpec:
+    """An array's stand-in (a meta tensor: shape and dtype) with its spec on
+    a mesh: the port's ``ShapeDtypeStruct(..., sharding=...)``."""
+    meta: torch.Tensor
+    spec: PartitionSpec
+
+
+def batch_specs(cfg: ArchConfig, shape: RunShape, mesh, rules=None) -> dict:
+    """The batch of ``shape``'s kind as MetaSpecs (modalities stubbed)."""
+    rules = rules or rules_for(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def sds(shp, dtype, axes):
+        return MetaSpec(_meta(shp, dtype),
+                        sharding_for_shape(shp, axes, mesh, rules))
+
+    if shape.kind == "train":
+        out = {"tokens": sds((b, s), torch.int32, ("batch", "seq")),
+               "labels": sds((b, s), torch.int32, ("batch", "seq"))}
+    elif shape.kind == "prefill":
+        out = {"tokens": sds((b, s), torch.int32, ("batch", "seq"))}
+    else:  # decode: one new token
+        out = {"tokens": sds((b, 1), torch.int32, ("batch", None))}
+    if cfg.n_vision_tokens and shape.kind != "decode":
+        out["vision_embeds"] = sds((b, cfg.n_vision_tokens, cfg.d_model), dt,
+                                   ("batch", "patches", "embed"))
+    if cfg.n_audio_frames and shape.kind != "decode":
+        out["audio_frames"] = sds((b, cfg.n_audio_frames, cfg.d_model), dt,
+                                  ("batch", "frames", "embed"))
+    return out
+
+
+def param_specs(cfg: ArchConfig, mesh, rules=None) -> dict:
+    """Every parameter as a MetaSpec, in the parameter tree's structure."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import init_abstract, logical_axes_tree
+    rules = rules or rules_for(cfg)
+    return tree_map(
+        lambda t, ax: MetaSpec(t, sharding_for_shape(tuple(t.shape), ax, mesh,
+                                                     rules)),
+        init_abstract(cfg), logical_axes_tree(cfg))
 
 
 # ---------------------------------------------------------------------------

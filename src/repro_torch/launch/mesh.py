@@ -18,11 +18,16 @@ every function here raises.
 sweep (:meth:`repro_torch.core.replay.ProxyProgram.mesh_sweep_plan`): the
 groups a placement's collectives run on.
 
+The data-parallel trainer (:mod:`repro_torch.train.loop`) and the
+instrumented collectives on real tensors
+(:func:`repro_torch.sharding.collectives.bind_mesh`) run on these meshes
+too, over the groups of :func:`mesh_groups`, built once a mesh.
 ``make_production_mesh`` (256 devices, the multi-pod dry run) is not
 ported yet: it comes with ``dryrun`` (ROADMAP, queue 1, item 12).
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Sequence
 
@@ -47,6 +52,14 @@ def backend_device_type() -> str:
         raise ValueError(f"backend {backend!r}: the mesh runs on "
                          f"{sorted(BACKEND_DEVICE)}")
     return BACKEND_DEVICE[backend]
+
+
+def backend_device() -> torch.device:
+    """The device this process runs the group's tensors on: the CPU under
+    gloo, the current CUDA device under NCCL."""
+    if backend_device_type() == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
 
 
 def check_tensor_backend(backend: str, device: torch.device) -> None:
@@ -149,3 +162,20 @@ class Submesh:
             raise KeyError(f"no process group over {key} for this process "
                            f"(submesh {self.axis_sizes} over {self.ranks})")
         return self._groups[key]
+
+
+def mesh_groups(mesh) -> Submesh:
+    """``mesh``'s process groups as a :class:`Submesh` over all its devices,
+    with a group for every ordered set of its axes.  Built on the first
+    call for a mesh object and kept on it: that first call is collective
+    (every process of the world makes it, for its own copy of the mesh, in
+    the same order as its other group-building calls)."""
+    sub = getattr(mesh, "_repro_groups", None)
+    if sub is None:
+        names = tuple(str(n) for n in mesh.mesh_dim_names)
+        sizes = dict(zip(names, (int(s) for s in mesh.mesh.shape)))
+        sets = [p for k in range(1, len(names) + 1)
+                for p in itertools.permutations(names, k)]
+        sub = Submesh(mesh_ranks(mesh), sizes, sets)
+        mesh._repro_groups = sub
+    return sub

@@ -11,7 +11,8 @@ Cross-attention (the encoder-decoder's decoder) takes the flash path
 without a mask for a query of ``FLASH_MIN_SEQ`` tokens or more, with s and
 t unequal.  Decode stays plain torch: ``_sdpa`` over the cache, which the
 reference also computes outside any kernel.  The reference's sharding
-constraints wait for the mesh slice.
+constraints wait for the execution of sharded specs (ROADMAP, queue 1,
+item 12).
 
 Decode updates the cache **in place** (the reference's
 ``dynamic_update_slice`` returns a new buffer): one token's K/V is written

@@ -11,7 +11,7 @@ off, or no input that needs a gradient) this is the forward wrapper alone,
 which writes no LSE: the serve path launches what it launched before.
 
 The reference's sharding (``attn_mode``, ``_axes``, constraints) waits for
-the port's mesh slice.  Its ``q_chunk``/``kv_chunk`` arguments are read
+the execution of sharded specs (ROADMAP, queue 1, item 12).  Its ``q_chunk``/``kv_chunk`` arguments are read
 only on meta tensors, which the cost walker runs: there the wrappers
 compute the reference's blocked XLA flash at those blocks, so the walker
 charges what the reference's does.  The kernels take any s and t and

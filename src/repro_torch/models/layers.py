@@ -3,8 +3,10 @@
 The port of ``src/repro/models/layers.py``.  Parameters are plain nested
 dicts and tuples of tensors; a :class:`Param` carries (shape, logical axes,
 init scale, dtype) and :func:`init_tree` turns a Param tree into tensors by
-the reference's ``materialize`` rule.  The sharding constraints of the
-reference wait for the port's mesh slice.
+the reference's ``materialize`` rule, and :func:`logical_axes` the tree of
+its logical axes, which :mod:`repro_torch.sharding.partition` maps to mesh
+axes.  The reference's sharding constraints inside the layers wait for the
+execution of sharded specs (ROADMAP, queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -57,6 +59,12 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def logical_axes(tree):
+    """The logical axes tuple of each :class:`Param` of a Param tree, in
+    the tree's structure (the reference's ``layers.logical_axes``)."""
+    return tree_map(lambda p: p.axes, tree)
 
 
 def init_tree(tree, seed: int, device) -> dict:

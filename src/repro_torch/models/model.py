@@ -6,7 +6,8 @@ returns the training loss, the prefill or the decode step; ``init_params``
 draws concrete weights on a device; ``params_from_numpy`` carries the
 reference's weights across value for value.  ``init_abstract`` and
 ``abstract_cache`` are the reference's shape-only stand-ins: meta tensors,
-which the cost walker runs on.  The encoder-decoder family
+which the cost walker runs on; ``logical_axes_tree`` the parameters'
+logical axes, as the reference's.  The encoder-decoder family
 (``family == "encdec"``) dispatches to :mod:`repro_torch.models.encdec`,
 every other family to :mod:`repro_torch.models.transformer`.
 """
@@ -21,13 +22,19 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import init_tree, tree_map
+from repro_torch.models.layers import init_tree, logical_axes, tree_map
 
 
 def param_tree(cfg: ArchConfig) -> dict:
     if cfg.family == "encdec":
         return E.init_encdec(cfg)
     return T.init_lm(cfg)
+
+
+def logical_axes_tree(cfg: ArchConfig) -> dict:
+    """The logical axes of every parameter, in the parameter tree's
+    structure: the leaves are tuples of axis names (or ``None``)."""
+    return logical_axes(param_tree(cfg))
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:

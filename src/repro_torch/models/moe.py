@@ -3,7 +3,8 @@ data shard, batched expert SwiGLU.
 
 The port of ``src/repro/models/moe.py`` (``moe_params``, ``moe_apply``)
 without a mesh: one data shard (``n_sh = 1``), in the reference's
-``(n_sh, tl, d)`` layout, so the mesh slice of the port can add shards.
+``(n_sh, tl, d)`` layout, so expert routing across a data mesh (ROADMAP,
+queue 1, item 12) can add shards.
 It computes what the reference computes, with three points where a
 literal translation of the jnp would not:
 

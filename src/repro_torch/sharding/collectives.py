@@ -13,10 +13,13 @@ Two roles:
    collective equation; under a :class:`~repro_torch.core.tracer.
    TraceSession` it emits to every rank of the session.  On a meta tensor
    it returns a meta tensor of the collective's per-rank output shape, with
-   axis sizes from the walker (or session).  Running a traced program's
-   collectives on real tensors is the distributed trainer's (ROADMAP,
-   queue 1, item 11's trainer half): until then the wrapper raises rather
-   than hand back its input as if the collective had run.
+   axis sizes from the walker (or session).  On a real tensor it runs the
+   collective with ``jax.lax``'s semantics over the process groups of the
+   mesh bound by :func:`bind_mesh` (SPMD: every process of the mesh runs
+   the same program), recording its event all the same.  A real tensor
+   with no bound mesh, an axis the mesh lacks, or a tensor of the other
+   backend's device raises: nothing passes its input through as if the
+   collective had run.
 
 2. **Replay comm backends** for generated proxy-apps:
    * :class:`LocalSim`: a sequence point per collective, for one process;
@@ -29,6 +32,7 @@ buffer, so a replay state keeps its shapes and dtypes through ``do``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -38,11 +42,35 @@ import torch.distributed as dist
 from repro_torch.core import tracer as _tracer
 from repro_torch.core.events import CommEvent, decode_relative_perm
 from repro_torch.core.metrics import dtype_name, torch_dtype
-from repro_torch.launch.mesh import check_tensor_backend
+from repro_torch.launch.mesh import Submesh, check_tensor_backend, mesh_groups
 
 # ---------------------------------------------------------------------------
 # instrumented wrappers
 # ---------------------------------------------------------------------------
+
+
+_BOUND: list[Submesh] = []
+
+
+@contextlib.contextmanager
+def bind_mesh(mesh):
+    """Bind the instrumented wrappers' axis names to ``mesh``'s process
+    groups: inside, a wrapper on a real tensor runs its collective there.
+
+    ``mesh`` is a :class:`~repro_torch.launch.mesh.Submesh` (used as it
+    is: its ``axes_sets`` must hold the axes the program names) or a
+    ``DeviceMesh``, whose groups over every ordered set of its axes
+    (:func:`~repro_torch.launch.mesh.mesh_groups`) the first use of that
+    mesh builds.  Building groups is collective: every process of the
+    world enters ``bind_mesh`` with the same mesh, in the same order,
+    members of the mesh or not."""
+    if not isinstance(mesh, Submesh):
+        mesh = mesh_groups(mesh)
+    _BOUND.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _BOUND.pop()
 
 
 def _axes(axes) -> tuple[str, ...]:
@@ -64,23 +92,32 @@ def _axis_size(axes: tuple[str, ...]) -> int:
 
 
 def _collective(kind: str, x: torch.Tensor, axes, detail: tuple,
-                out_shape) -> torch.Tensor:
-    """Record the event, then return the per-rank output on meta.
-
-    ``out_shape`` maps the group size to the output shape."""
+                out_shape, run=None) -> torch.Tensor:
+    """Record the event, then return the per-rank output: on meta, a meta
+    tensor of ``out_shape(group size)``; on a real tensor,
+    ``run(process group, members)`` over the bound mesh."""
     axes_t = _axes(axes)
     if x.device.type != "meta":
-        raise NotImplementedError(
-            f"{kind} on a {x.device.type} tensor: running a traced "
-            "program's collectives on a mesh waits for the distributed "
-            "trainer (ROADMAP, queue 1, item 11's trainer half); trace the "
-            "program with trace_fn or synthesize(fn, ..., axis_sizes=...), "
-            "which run it on meta tensors, and replay its proxy on a mesh "
-            "with ProxyProgram.run_all(mesh=...)")
-    shape = tuple(out_shape(_axis_size(axes_t)))
+        sub = _BOUND[-1] if _BOUND else None
+        if sub is None:
+            raise RuntimeError(
+                f"{kind} on a {x.device.type} tensor with no mesh bound: run "
+                "the program inside collectives.bind_mesh(mesh), one process "
+                "a device, or trace it with trace_fn / synthesize(fn, ..., "
+                "axis_sizes=...), which run it on meta tensors")
+        for a in axes_t:
+            if a not in sub.axis_sizes:
+                raise ValueError(f"collective over axis {a!r}: unknown size "
+                                 f"(the bound mesh has {sub.axis_sizes})")
+        check_tensor_backend(sub.backend, x.device)
+        pg, members = sub.group(axes_t)
     ev = CommEvent(kind=kind, shape=tuple(int(s) for s in x.shape),
                    dtype=dtype_name(x.dtype),
                    axes=tuple(str(a) for a in axes_t), detail=detail)
+    if x.device.type != "meta":
+        _tracer.record_event(ev)
+        return run(pg, members)
+    shape = tuple(out_shape(_axis_size(axes_t)))
     w = _tracer.active_walker()
     if w is not None:
         w.emit_comm(ev)
@@ -89,18 +126,27 @@ def _collective(kind: str, x: torch.Tensor, axes, detail: tuple,
     return torch.empty(shape, dtype=x.dtype, device="meta")
 
 
+def _reduce(x: torch.Tensor, op, pg) -> torch.Tensor:
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op, group=pg)
+    return y
+
+
 def psum(x: torch.Tensor, axes) -> torch.Tensor:
-    return _collective("psum", x, axes, (), lambda n: x.shape)
+    return _collective("psum", x, axes, (), lambda n: x.shape,
+                       lambda pg, m: _reduce(x, dist.ReduceOp.SUM, pg))
 
 
 def pmax(x: torch.Tensor, axes) -> torch.Tensor:
-    return _collective("pmax", x, axes, (), lambda n: x.shape)
+    return _collective("pmax", x, axes, (), lambda n: x.shape,
+                       lambda pg, m: _reduce(x, dist.ReduceOp.MAX, pg))
 
 
 def all_gather(x: torch.Tensor, axis, *, gather_dim: int = 0,
                tiled: bool = False) -> torch.Tensor:
     """``lax.all_gather``: a new dim of the group size at ``gather_dim``,
-    or (``tiled``) that dim ``n`` times longer."""
+    or (``tiled``) that dim ``n`` times longer; the members' blocks in the
+    order of the axes named."""
     def shape(n):
         s = list(x.shape)
         if tiled:
@@ -108,13 +154,18 @@ def all_gather(x: torch.Tensor, axis, *, gather_dim: int = 0,
         else:
             s.insert(gather_dim, n)
         return s
-    return _collective("all_gather", x, axis, (gather_dim,), shape)
+
+    def run(pg, members):
+        g = _gather(x, pg, members).movedim(0, gather_dim)
+        return g.reshape(shape(len(members))) if tiled else g.contiguous()
+    return _collective("all_gather", x, axis, (gather_dim,), shape, run)
 
 
 def psum_scatter(x: torch.Tensor, axis, *, scatter_dim: int = 0,
                  tiled: bool = True) -> torch.Tensor:
     """``lax.psum_scatter``: ``scatter_dim`` cut ``n`` ways (``tiled``), or
-    dropped (it must be ``n`` long)."""
+    dropped (it must be ``n`` long); member ``k`` keeps the sum of block
+    ``k``."""
     def shape(n):
         s = list(x.shape)
         if s[scatter_dim] % n or (not tiled and s[scatter_dim] != n):
@@ -125,7 +176,12 @@ def psum_scatter(x: torch.Tensor, axis, *, scatter_dim: int = 0,
         else:
             del s[scatter_dim]
         return s
-    return _collective("reduce_scatter", x, axis, (scatter_dim,), shape)
+
+    def run(pg, members):
+        out_shape = shape(len(members))
+        y = _reduce_scatter(x, scatter_dim, pg, members)
+        return y.reshape(out_shape)
+    return _collective("reduce_scatter", x, axis, (scatter_dim,), shape, run)
 
 
 def all_to_all(x: torch.Tensor, axis, split_axis: int, concat_axis: int, *,
@@ -145,16 +201,26 @@ def all_to_all(x: torch.Tensor, axis, split_axis: int, concat_axis: int, *,
             del s[split_axis]
             s.insert(concat_axis, n)
         return s
+
+    def run(pg, members):
+        shape(len(members))                     # the checks
+        if tiled:
+            return _all_to_all(x, split_axis, concat_axis, pg, members)
+        # blocks of one along the split dim, gathered back in its place in
+        # member order, then moved to the concat position
+        y = _all_to_all(x, split_axis, split_axis, pg, members)
+        return y.movedim(split_axis, concat_axis).contiguous()
     return _collective("all_to_all", x, axis, (split_axis, concat_axis),
-                       shape)
+                       shape, run)
 
 
 def ppermute(x: torch.Tensor, axis, perm: Sequence[tuple[int, int]]
              ) -> torch.Tensor:
-    return _collective("ppermute", x, axis,
-                       ("rawperm", tuple(tuple(int(i) for i in p)
-                                         for p in perm)),
-                       lambda n: x.shape)
+    """``lax.ppermute``; a device no pair sends to receives zeros."""
+    perm = tuple(tuple(int(i) for i in p) for p in perm)
+    return _collective("ppermute", x, axis, ("rawperm", perm),
+                       lambda n: x.shape,
+                       lambda pg, m: _ppermute(x, perm, pg, m))
 
 
 # ---------------------------------------------------------------------------
@@ -246,9 +312,7 @@ class DeviceComm:
         pg, members = self.submesh.group(axes)
         check_tensor_backend(self.submesh.backend, x.device)
         if kind in _REDUCE_OPS:
-            y = x.clone(memory_format=torch.contiguous_format)
-            dist.all_reduce(y, getattr(dist.ReduceOp, _REDUCE_OPS[kind]),
-                            group=pg)
+            y = _reduce(x, getattr(dist.ReduceOp, _REDUCE_OPS[kind]), pg)
             if kind == "psum":
                 size = math.prod(self.axis_sizes[a] for a in axes)
                 y = y / max(size, 1)
@@ -308,6 +372,21 @@ def _gather(x: torch.Tensor, pg, members) -> torch.Tensor:
     out = out.reshape((len(members),) + tuple(x.shape))
     order = _group_order(members)
     return out if order == sorted(order) else out[order]
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, pg, members) -> torch.Tensor:
+    """``lax.psum_scatter(tiled=True)`` over ``dim``: member ``k`` gets the
+    sum of every member's block ``k``."""
+    g = len(members)
+    order = _group_order(members)
+    xm = x.movedim(dim, 0)
+    chunks = xm.reshape((g, xm.shape[0] // g) + tuple(xm.shape[1:]))
+    send = chunks.new_empty(chunks.shape)      # contiguous
+    send[order] = chunks                       # block k to group rank order[k]
+    out = send.new_empty(send.shape[1:])
+    dist.reduce_scatter_tensor(out, send.reshape((-1,) + tuple(xm.shape[1:])),
+                               dist.ReduceOp.SUM, group=pg)
+    return out.movedim(0, dim)
 
 
 def _all_to_all(x: torch.Tensor, split: int, concat: int, pg,

@@ -18,8 +18,9 @@ bfloat16 array (descr ``'<V2'``; numpy itself has no bfloat16, and the
 port does not import ml_dtypes), and the manifest records
 ``"bfloat16"``.  Restore reads that form, and the ``uint16`` files that
 earlier versions of the port wrote, to the same bits.  Restore places
-every leaf on one device with the template leaf's dtype; elastic restore
-onto another mesh waits for the port's mesh slice.
+every leaf on one device with the template leaf's dtype: the data-parallel
+trainer's replicas each restore the whole state, so a checkpoint moves
+between meshes of any data size and the single-device trainer.
 """
 from __future__ import annotations
 

@@ -223,9 +223,13 @@ def test_state_builders_default_to_cuda_and_raise_without_it(no_cuda,
 
 
 def test_synthesize_from_a_function_is_not_ported_yet():
-    """``synthesize(fn, ...)`` traces ``fn`` on meta tensors; what is not
-    ported yet is a collective on real tensors (the mesh backend): it
-    raises, never passing its input through as if it had run."""
+    """``synthesize(fn, ...)`` traces ``fn`` on meta tensors.  Run on real
+    tensors, ``fn``'s collectives need a bound mesh: without one they
+    raise, never passing their input through as if they had run; bound to
+    a mesh of one gloo process, ``fn`` runs (a psum over one rank is its
+    input)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_replay_mesh
     from repro_torch.sharding import collectives as C
 
     def fn(x):
@@ -234,8 +238,17 @@ def test_synthesize_from_a_function_is_not_ported_yet():
     res = synthesize(fn, torch.zeros(8, 8), axis_sizes={"x": 4},
                      device="cpu")
     assert res.store.n_ranks == 4 and res.store.n_comm_events == 4
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="mesh"):
         fn(torch.zeros(8, 8))
+    x = torch.randn(8, 8)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with C.bind_mesh(make_replay_mesh({"x": 1})):
+            got = fn(x)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, torch.tanh(x @ x))
 
 
 def test_noise_replay_is_not_ported_yet(tmp_path):

@@ -266,16 +266,40 @@ def test_wrapper_event_and_shape_match_reference(case, ref):
 
 
 def test_wrappers_raise_on_real_tensors_and_unknown_axes():
-    """No silent pass-through: a real tensor needs the mesh backend, and an
-    axis of unknown size cannot give an output shape."""
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """No silent pass-through: a real tensor needs a bound mesh (inside a
+    TraceSession too), an axis of unknown size cannot give an output shape
+    (on meta) and names no group (on a bound mesh).  Bound to a mesh of one
+    gloo process, a wrapper runs its collective (the identity over a group
+    of one) and still records the reference's event."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_replay_mesh
+    with pytest.raises(RuntimeError, match="no mesh bound"):
         C.psum(torch.ones(3), "x")
     with tracer.TraceSession(N, {"x": N}):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(RuntimeError, match="no mesh bound"):
             C.ppermute(torch.ones(3), "x", [(0, 1)])
     with pytest.raises(ValueError, match="unknown size"):
         tracer.trace_fn(lambda x: C.all_gather(x, "y"), torch.ones(3),
                         axis_sizes={"x": N})
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        x = torch.arange(6.0).reshape(3, 2)
+        with C.bind_mesh(make_replay_mesh({"x": 1})):
+            with pytest.raises(ValueError, match="unknown size"):
+                C.psum(x, "y")
+            with tracer.TraceSession(N, {"x": 1}) as sess:
+                y = C.psum(x, "x")
+                z = C.all_gather(x, "x", gather_dim=1)
+        assert torch.equal(y, x) and y is not x
+        assert torch.equal(z, x[:, None])
+        assert [e.kind for e in sess.rank_streams[0]] == ["psum",
+                                                          "all_gather"]
+        assert sess.rank_streams[0][1].detail == (1,)
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(RuntimeError, match="no mesh bound"):
+        C.psum(torch.ones(3), "x")
 
 
 # ---------------------------------------------------------------------------

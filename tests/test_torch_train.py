@@ -499,18 +499,59 @@ def test_trainer_microbatching_equivalence(tmp_path):
 
 
 def test_mesh_paths_wait_for_the_mesh_slice(tmp_path):
+    """What still raises: a mesh that would shard a parameter (a ``model``
+    axis over 1; a config's ``("embed", "data")`` override on a data size
+    over 1), a config that routes experts on a data size over 1, and a
+    mesh given as a plain geometry, not a DeviceMesh.  What runs since the
+    data-parallel slice: ``grad_compression="int8"`` is ignored by
+    ``make_train_step``, as the reference ignores it (the same loss bits),
+    and on a one-process gloo group the manual int8 DP step trains and
+    ``Trainer.reshard`` moves a trainer between a mesh and no mesh."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_dp_mesh, make_test_mesh
     from repro_torch.train import loop
+    from repro_torch.train.compression import init_error_state
     cfg = smoke(get("llama3.2-3b"))
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        make_train_step(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        make_train_step(cfg, options=TrainOptions(grad_compression="int8"),
+    with pytest.raises(NotImplementedError, match="item 12"):
+        make_train_step(cfg, mesh={"data": 2, "model": 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        make_train_step(smoke(get("deepseek-moe-16b")), {"data": 4},
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    moe = dataclasses.replace(smoke(get("mixtral-8x22b")), rules_overrides=())
+    with pytest.raises(NotImplementedError, match="routes experts"):
+        Trainer(moe, {"data": 2}, ckpt_dir=tmp_path, device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make_train_step(cfg, mesh={"data": 4}, device="cpu")
+    with pytest.raises(TypeError, match="not a mesh"):
         loop.make_manual_dp_train_step(cfg, object())
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        Trainer(cfg, object(), ckpt_dir=tmp_path, device="cpu")
-    t = Trainer(cfg, global_batch=2, seq_len=8, ckpt_dir=tmp_path,
-                device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        t.reshard(object())
+    batch = TokenDataset(cfg.vocab, 8, 2, seed=1).batch_at(0)
+    losses = []
+    for opt in ("none", "int8"):
+        step = make_train_step(cfg, options=TrainOptions(
+            grad_compression=opt), device="cpu")
+        params = init_params(cfg, 0, "cpu")
+        losses.append(float(step(params, O.adamw_init(params),
+                                 batch)[2]["loss"]))
+    assert losses[0] == losses[1]
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        params = init_params(cfg, 0, "cpu")
+        step = loop.make_manual_dp_train_step(cfg, make_dp_mesh(1))
+        opt, err = O.adamw_init(params), init_error_state(params)
+        got = [float(step(params, opt, err, batch)[3]["loss"])
+               for _ in range(3)]
+        assert got[0] == losses[0] and got[2] < got[0]
+        assert any(float(e.abs().max()) > 0 for e in tree_leaves(err))
+        t = Trainer(cfg, make_test_mesh(1, 1), global_batch=2, seq_len=8,
+                    ckpt_dir=tmp_path / "t", device="cpu")
+        t.run(1)
+        t.reshard(None)
+        assert t.active and t.mesh is None and t.step == 1
+        t.run(1)
+        t.reshard(make_dp_mesh(1))
+        t.run(1)
+        assert t.step == 3 and len(t.metrics_log) == 3
+    finally:
+        dist.destroy_process_group()

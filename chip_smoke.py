@@ -98,7 +98,14 @@ paths on the card, checking that each went through its kernels:
   parameter leaf, its falling loss, step ms, peak memory and the
   compression's ms); the smoke Llama's DP steps and mesh trainer on the
   card against the same code on the CPU under gloo, with a bit-identical
-  crash/resume; and each instrumented collective wrapper on a CUDA tensor.
+  crash/resume; and each instrumented collective wrapper on a CUDA tensor;
+- slice 13: tensor parallel (:func:`phase_tp`) on two processes of the one
+  card (a data 1 x model 2 mesh, gloo carrying CUDA tensors): the f32
+  smoke Llama, Gemma 3 and Mamba2 against one device (prefill, greedy
+  tokens, a train step), Llama 3.2 3B and Mamba2 2.7B served at full width
+  against one device (Mamba2 also cut to 8 layers in f32, through a prefill
+  and decode steps), one full-width Llama train step, and a process's
+  kernel shapes timed.
 
 Then it times every kernel against its plain version, its bound and, where
 one PyTorch call computes the same function, that call; for the two
@@ -3342,6 +3349,700 @@ def phase_dp_train(dev) -> dict:
     return row
 
 
+#: slice 13: tensor parallel on two processes of the one card (a data 1 x
+#: model 2 mesh over gloo carrying CUDA tensors: NCCL refuses two ranks on
+#: one device).  Every collective goes through the host, so the phase's wall
+#: times are gloo's, not a tensor-parallel speed.
+TP_MODEL = 2
+TP_SMOKE = ("llama3.2-3b", "gemma3-4b", "mamba2-2.7b")
+TP_SMOKE_BATCH, TP_SMOKE_NEW = 2, 8
+#: f32 smoke configs, the mesh against one device on the card: prefill
+#: logits within 1e-4 of the largest (tests/test_torch_tp.py's level
+#: against the reference); the train level for one step's gradients
+TP_LOGIT_RTOL = 1e-4
+#: full width, bf16: prefill logits against one device's within 2^-4 of
+#: the largest (the serve level of bf16 logits) for Llama; Mamba2's 64
+#: random layers amplify bf16 rounding in another order to O(1), as its
+#: prefill against its decode (CONSISTENCY_BF16_RTOL), so its whole model
+#: is held to the reference's drift, and one of its layers alone, fed the
+#: same input on the mesh and on one device, to 2^-4 (SSM_LAYER_BF16_RTOL);
+#: a train step's loss within 2^-7 relative (the bf16 sums of the
+#: row-parallel products in another order).  With random weights the loss
+#: sits near ln(vocab) whatever the forward computes, so the step's
+#: reduced-gradient norm is held too, within 1e-3 relative of one device's
+#: (the card measured 1.9e-5 apart); a row-parallel sum dropped or doubled
+#: moves the gradients of every layer below it
+TP_BF16_LOGIT_RTOL = {"llama3.2-3b": 2.0 ** -4,
+                      "mamba2-2.7b": CONSISTENCY_BF16_RTOL["mamba2-2.7b"]}
+TP_BF16_LOSS_RTOL = 2.0 ** -7
+TP_BF16_GRAD_NORM_RTOL = 1e-3
+#: full width in f32, cut in depth, the mesh against one device: (layers
+#: kept, prefill length, decode steps after it), the prefill's and every
+#: step's logits within TP_LOGIT_RTOL of the largest.  Mamba2's bf16 logits
+#: are held only to its drift (above), so every layer's prefill and the
+#: sharded decode at 40 heads a process (its re-dealt conv columns) are held
+#: here; 8 layers' f32 weights fit beside the bf16 ones
+TP_F32_CUT = {"mamba2-2.7b": (8, 1792, 8)}
+#: the full-width serve cells on the mesh: prompt length (SERVE_BATCH rows,
+#: SERVE_NEW new tokens), the kernel whose launches a generate counts per
+#: process, and the consistency check's (length, decode steps): the last
+#: position's logits of a prefill of that length against a prefill of all
+#: but the last steps, then teacher-forced decode steps through them.
+#: Every decode step's collectives go through the host (0.5-0.8 s a step),
+#: so the steps are few; Mamba2's shorter prefill must be a multiple of its
+#: SSD chunk of 256 or shorter than it
+TP_CELLS = {"llama3.2-3b": (2048, "flash_fwd", (2048, 8)),
+            "mamba2-2.7b": (2048, "ssd_diag", (256, 32))}
+#: a process's kernel shapes at model 2: Llama 3.2 3B's 24/8 heads halved,
+#: Mamba2 2.7B's 80 SSD heads halved
+TP_FLASH = dict(b=4, s=2048, h=12, g=4, d=128)
+TP_SSD = dict(b=4, c=8, q=256, g=1, r=40, p=64, n=128)
+#: seconds phase_tp waits for its processes
+TP_TIMEOUT = 900
+
+
+class _TPCheck(AssertionError):
+    """A check of phase_tp that failed in one of its processes."""
+
+
+def _tp_require(ok: bool, msg: str) -> None:
+    if not ok:
+        raise _TPCheck(msg)
+
+
+@contextlib.contextmanager
+def _tp_kernel_shapes(records: list):
+    """Record the heads of every flash-attention call of the models ((h,
+    g)) and of every SSD diagonal block ((h,))."""
+    from repro_torch.models import attention as A, ssm as S
+
+    flash, ssd = A.flash_attention, S.ssd_diag
+
+    def f(q, k, v, **kw):
+        records.append(("flash_fwd", q.shape[2], k.shape[2]))
+        return flash(q, k, v, **kw)
+
+    def s(x, *a, **kw):
+        records.append(("ssd_diag", x.shape[3]))
+        return ssd(x, *a, **kw)
+
+    A.flash_attention, S.ssd_diag = f, s
+    try:
+        yield
+    finally:
+        A.flash_attention, S.ssd_diag = flash, ssd
+
+
+def _tp_block(x, axes, mesh, cfg):
+    """This process's block of a whole array under the config's rules."""
+    from repro_torch.configs.registry import rules_for
+    from repro_torch.sharding.partition import local_shard, sharding_for_shape
+    return local_shard(x, sharding_for_shape(tuple(x.shape), axes, mesh,
+                                             rules_for(cfg)), mesh)
+
+
+def _tp_smoke(arch: str, mesh, dev) -> dict:
+    """An f32 smoke config on the mesh against one device on the card:
+    prefill logits, 8 greedy tokens, one train step's loss and gradients."""
+    import repro_torch.train.loop as loop_mod
+    from repro_torch.configs import get, smoke
+    from repro_torch.configs.registry import rules_for
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import (
+        build_forward, init_params, logical_axes_tree,
+    )
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.partition import local_shard, shard_params
+    from repro_torch.train.data import TokenDataset
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = smoke(get(arch))
+    plen = SMOKE_PROMPTS[arch]
+    whole = init_params(cfg, 0, dev)
+    params = shard_params(whole, logical_axes_tree(cfg), mesh, rules_for(cfg))
+    prompts = serve_prompts(cfg, TP_SMOKE_BATCH, plen)
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    prefill = build_forward(cfg, "prefill")
+    with torch.inference_mode():
+        got = prefill(params, {"tokens": toks}, cfg, mesh)[0]
+        want = _tp_block(prefill(whole, {"tokens": toks}, cfg)[0],
+                         ("batch", "vocab"), mesh, cfg)
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    _tp_require(err <= TP_LOGIT_RTOL * top, f"tp smoke {arch}: prefill "
+                f"logits {err} apart, largest {top}")
+    logit_err = err / top
+    n = plen + TP_SMOKE_NEW
+    t_mesh = ServeEngine(cfg, params, mesh, max_len=n).generate(
+        prompts, TP_SMOKE_NEW).tokens
+    t_one = ServeEngine(cfg, whole, device=dev, max_len=n).generate(
+        prompts, TP_SMOKE_NEW).tokens
+    _tp_require((t_mesh == t_one).all(), f"tp smoke {arch}: tokens "
+                f"{t_mesh.tolist()} against one device's {t_one.tolist()}")
+    batch = TokenDataset(cfg.vocab, plen, TP_SMOKE_BATCH, seed=3).batch_at(0)
+    real, seen = loop_mod.adamw_update, []
+
+    def spy(grads, *a, **k):
+        seen.append([g.detach().clone() for g in tree_leaves(grads)])
+        return real(grads, *a, **k)
+
+    loop_mod.adamw_update = spy
+    try:
+        step = make_train_step(cfg, mesh)
+        _, _, m_mesh = step(params, adamw_init(params), batch)
+        _, _, m_one = make_train_step(cfg, device=dev)(
+            whole, adamw_init(whole), batch)
+    finally:
+        loop_mod.adamw_update = real
+    loss = (float(m_mesh["loss"]), float(m_one["loss"]))
+    _tp_require(abs(loss[0] - loss[1]) <= TRAIN_LOSS_RTOL * abs(loss[1]),
+                f"tp smoke {arch}: losses {loss}")
+    worst = 0.0
+    for i, (g, w, spec) in enumerate(zip(seen[0], seen[1],
+                                         step.data_parallel.specs)):
+        blk = local_shard(w, spec, mesh)
+        top = float(w.abs().max())
+        e = float((g - blk).abs().max())
+        _tp_require(e <= TRAIN_GRAD_RTOL * top, f"tp smoke {arch}: gradient "
+                    f"leaf {i} {e} apart, largest {top}")
+        worst = max(worst, e / top if top else 0.0)
+    return {"logit_err": logit_err, "tokens_equal": True, "losses": loss,
+            "grad_norms": (float(m_mesh["grad_norm"]),
+                           float(m_one["grad_norm"])), "worst_grad": worst}
+
+
+def _tp_ssm_layer(cfg, whole, params, mesh, dev, plen: int) -> float:
+    """The first Mamba2 layer's mixer on the mesh against one device, fed
+    the same N(0, 1) input: max|diff| as a share of max|output|, held to
+    SSM_LAYER_BF16_RTOL."""
+    from repro_torch.models import ssm as S
+    from repro_torch.sharding import spmd
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((SERVE_BATCH, plen, cfg.d_model),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(head_dim=cfg.ssm_head_dim, n_state=cfg.ssm_state,
+              n_groups=cfg.ssm_groups, expand=cfg.ssm_expand,
+              chunk=cfg.ssm_chunk)
+    mixer = lambda tree: {k: v[0] for k, v in tree["unit"][0][  # noqa
+        "mixer"].items()}
+    want = S.ssm_apply(mixer(whole), x, **kw).float()
+    got = S.ssm_apply(mixer(params), x, mesh=spmd.context(mesh, cfg),
+                      **kw).float()
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    _tp_require(err <= SSM_LAYER_BF16_RTOL, f"tp {cfg.name}: a layer on the "
+                f"mesh {err} of max|output| from one device's")
+    return err
+
+
+def _tp_f32_cut(cfg, whole, mesh, dev, toks, layers: int, plen: int,
+                steps: int) -> float:
+    """``cfg`` cut to ``layers``, in f32, on the mesh against one device: a
+    prefill of ``plen`` tokens, then ``steps`` decode steps through the
+    next tokens of ``toks``; the worst max|diff| of the prefill's and each
+    step's logits as a share of their max|logits|, held to
+    TP_LOGIT_RTOL."""
+    import dataclasses
+    from repro_torch.configs.registry import rules_for
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import build_forward, logical_axes_tree
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.partition import shard_params
+
+    ccfg, cut = cut_depth(cfg, whole, layers)
+    ccfg = dataclasses.replace(ccfg, dtype="float32")
+    one = tree_map(lambda t: t.float(), cut)
+    params = shard_params(one, logical_axes_tree(ccfg), mesh,
+                          rules_for(ccfg))
+    prefill, decode = (build_forward(ccfg, k) for k in ("prefill", "decode"))
+    got, pre = prefill(params, {"tokens": toks[:, :plen]}, ccfg, mesh)
+    c_mesh = ServeEngine(ccfg, params, mesh, max_len=plen + steps
+                         ).decode_cache(pre, SERVE_BATCH)
+    want, pre = prefill(one, {"tokens": toks[:, :plen]}, ccfg)
+    c_one = ServeEngine(ccfg, one, device=dev, max_len=plen + steps
+                        ).decode_cache(pre, SERVE_BATCH)
+    del pre
+    worst = 0.0
+    for i in range(plen, plen + steps + 1):
+        w = _tp_block(want, ("batch", "vocab"), mesh, ccfg)
+        err = float((got - w).abs().max()) / float(w.abs().max())
+        _tp_require(err <= TP_LOGIT_RTOL, f"tp {cfg.name} f32 at {layers} "
+                    f"layers: logits at position {i - 1} {err} of max|logits| "
+                    "from one device's")
+        worst = max(worst, err)
+        if i < plen + steps:
+            tok = {"tokens": toks[:, i:i + 1]}
+            got, c_mesh = decode(params, c_mesh, tok, i, ccfg, mesh)
+            want, c_one = decode(one, c_one, tok, i, ccfg)
+    return worst
+
+
+def _tp_peak_gib(dev):
+    """The process's peak GiB on the card since the last reset (None off
+    the card)."""
+    if dev.type != "cuda":
+        return None
+    return round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 3)
+
+
+def _tp_serve(arch: str, mesh, dev, rank: int) -> dict:
+    """A full-width bf16 config served on the mesh: prefill logits against
+    one device's, a generate (its launches and their heads), and the
+    prefill/decode consistency on the mesh."""
+    from repro_torch.configs import get
+    from repro_torch.configs.registry import rules_for
+    from repro_torch.models.model import (
+        build_forward, init_params, logical_axes_tree,
+    )
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.partition import shard_params
+
+    cfg = get(arch)
+    plen, kernel, (clen, steps) = TP_CELLS[arch]
+    prompts = serve_prompts(cfg, SERVE_BATCH, plen)
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    prefill = build_forward(cfg, "prefill")
+    decode = build_forward(cfg, "decode")
+    whole = init_params(cfg, 0, dev)
+    row = {}
+    with torch.inference_mode():
+        want = _tp_block(prefill(whole, {"tokens": toks}, cfg)[0],
+                         ("batch", "vocab"), mesh, cfg).float().clone()
+        params = shard_params(whole, logical_axes_tree(cfg), mesh,
+                              rules_for(cfg))
+        if cfg.family == "ssm":
+            row["layer_err"] = _tp_ssm_layer(cfg, whole, params, mesh, dev,
+                                             plen)
+        if arch in TP_F32_CUT:
+            row["f32_cut_err"] = _tp_f32_cut(cfg, whole, mesh, dev, toks,
+                                             *TP_F32_CUT[arch])
+    del whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    engine = ServeEngine(cfg, params, mesh, max_len=plen + SERVE_NEW)
+    seen = []
+    real = engine._prefill
+    engine._prefill = lambda *a: seen.append(real(*a)) or seen[-1]
+    shapes = []
+    reset_counts()
+    with _tp_kernel_shapes(shapes):
+        res = engine.generate(prompts, SERVE_NEW)
+    row["launches"] = read_counts()
+    full = seen[0][0].float()                   # the generate's prefill
+    del seen
+    err = float((full - want).abs().max())
+    top = float(want.abs().max())
+    row["logit_err"] = err / top
+    _tp_require(err <= TP_BF16_LOGIT_RTOL[arch] * top, f"tp {arch}: prefill "
+                f"logits {err} apart from one device's, largest {top}")
+    row["heads"] = sorted(set(tuple(x[1:]) for x in shapes if x[0] == kernel))
+    row["kernel_calls"] = sum(1 for x in shapes if x[0] == kernel)
+    row["generate_prefill_ms_gloo"] = 1e3 * res.prefill_sec
+    row["generate_decode_ms_gloo"] = 1e3 * res.decode_sec
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        if clen != plen:
+            full = prefill(params, {"tokens": toks[:, :clen]}, cfg,
+                           mesh)[0].float()
+        logits, pre = prefill(params, {"tokens": toks[:, :clen - steps]},
+                              cfg, mesh)
+        cache = ServeEngine(cfg, params, mesh, max_len=clen).decode_cache(
+            pre, SERVE_BATCH)
+        del pre
+        for i in range(clen - steps, clen):
+            logits, cache = decode(params, cache, {"tokens": toks[:, i:i + 1]},
+                                   i, cfg, mesh)
+    row["consistency"] = (float((logits.float() - full).abs().max()),
+                          float(full.abs().max()))
+    row["consistency_ms_gloo"] = 1e3 * (time.perf_counter() - t0)
+    row["tokens"] = res.tokens.tolist()
+    row["peak_gib"] = _tp_peak_gib(dev)
+    return row
+
+
+def _tp_train(mesh, dev, rank: int) -> dict:
+    """One Llama 3.2 3B train step at 4 x 2048 on the mesh (launches, ms,
+    peak), then, on process 0 alone, the same step on one device."""
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import TokenDataset
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = get("llama3.2-3b")
+    batch = TokenDataset(cfg.vocab, 2048, TRAIN_BATCH, seed=1).batch_at(0)
+    params = init_params(cfg, 0, dev, mesh=mesh)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, mesh)
+    row = {}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    row["loss"] = float(m["loss"])
+    row["grad_norm"] = float(m["grad_norm"])
+    row["step_ms_gloo"] = 1e3 * (time.perf_counter() - t0)
+    row["launches"] = read_counts()
+    row["peak_gib"] = _tp_peak_gib(dev)
+    del params, opt, step, m
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        whole = init_params(cfg, 0, dev)
+        _, _, m = make_train_step(cfg, device=dev)(whole, adamw_init(whole),
+                                                   batch)
+        row["one_device"] = (float(m["loss"]), float(m["grad_norm"]))
+        del whole, m
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return row
+
+
+def _tp_gloo(dev, rank: int) -> dict:
+    """The collectives of the sharded model on CUDA tensors over gloo: the
+    sum and max all-reduce, the all-gather and the reduce-scatter, exact on
+    small integers in bf16 and f32 (no upcast); and the ms of a 64 MiB sum
+    all-reduce of each (the mean of 3)."""
+    import torch.distributed as dist
+    out = {}
+    w = dist.get_world_size()
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.full((2 * w, 5), float(rank + 1), device=dev, dtype=dt)
+        s, m = x.clone(), x.clone()
+        dist.all_reduce(s)
+        dist.all_reduce(m, dist.ReduceOp.MAX)
+        g = x.new_empty((w * 2 * w, 5))
+        dist.all_gather_into_tensor(g, x)
+        r = x.new_empty((2, 5))
+        dist.reduce_scatter_tensor(r, x)
+        tot = w * (w + 1) // 2
+        each = torch.arange(1, w + 1, device=dev).repeat_interleave(2 * w)
+        _tp_require(all(t.dtype == dt for t in (s, m, g, r))
+                    and bool((s == tot).all()) and bool((m == w).all())
+                    and bool((g == each[:, None].to(dt)).all())
+                    and bool((r == tot).all()),
+                    f"gloo's collectives of a {dt} CUDA tensor gave sum {s}, "
+                    f"max {m}, all-gather {g}, reduce-scatter {r}")
+        big = torch.ones(64 * 2 ** 20 // x.element_size(), device=dev,
+                         dtype=dt)
+        dist.all_reduce(big)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dist.all_reduce(big)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[str(dt).replace("torch.", "")] = 1e3 * (time.perf_counter()
+                                                    - t0) / 3
+        del big
+    return out
+
+
+def _tp_worker(rank: int, world: int, store: str, queue, opts: dict) -> None:
+    """One process of phase_tp: gloo on a FileStore, the mesh's tensors on
+    ``opts["device"]`` (CUDA: the opt-in of ``make_test_mesh``)."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    try:
+        dev = torch.device(opts["device"])
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+            dev = torch.device("cuda", 0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+        else:
+            torch.set_num_threads(1)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+        try:
+            from repro_torch.launch.mesh import make_test_mesh
+            mesh = make_test_mesh(1, world, device=(
+                "cuda" if dev.type == "cuda" else None))
+            out = {"gloo_64mib_ms": _tp_gloo(dev, rank)}
+            out["smoke"] = {a: _tp_smoke(a, mesh, dev) for a in opts["smoke"]}
+            out["serve"] = {a: _tp_serve(a, mesh, dev, rank)
+                            for a in opts["serve"]}
+            if opts["train"]:
+                out["train"] = _tp_train(mesh, dev, rank)
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, out))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+
+
+def tp_processes(opts: dict, base: Path) -> list[dict]:
+    """phase_tp's processes (spawned, TP_MODEL of them): each one's result,
+    in rank order; fails, ending them all, when one fails or they do not
+    end within TP_TIMEOUT."""
+    import queue as queue_mod
+    import shutil
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_tp_worker,
+                         args=(r, TP_MODEL, str(base / "store"), q, opts))
+             for r in range(TP_MODEL)]
+    for p in procs:
+        p.start()
+    outs, err = {}, None
+    try:
+        deadline = time.perf_counter() + TP_TIMEOUT
+        while len(outs) < TP_MODEL and err is None:
+            try:
+                rank, out = q.get(timeout=max(1.0, deadline -
+                                              time.perf_counter()))
+            except queue_mod.Empty:
+                err = f"no result within {TP_TIMEOUT} s"
+                break
+            if isinstance(out, str):
+                err = f"process {rank}:\n{out}"
+            outs[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30 if err is None else 1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(base, ignore_errors=True)
+    if err is not None:
+        fail(f"tp: {err}")
+    return [outs[r] for r in range(TP_MODEL)]
+
+
+def tp_kernel_rows(dev, launches: dict) -> list[dict]:
+    """A process's kernel shapes at model 2 (TP_FLASH, TP_SSD), against
+    their plain versions, then timed in turns with PyTorch's SDPA (flash)
+    beside the plain version and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    from repro_torch.kernels.ssd import ops as sops, ref as sref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, s, h, g, d = (TP_FLASH[k] for k in "bshgd")
+    q, k, v = flash_inputs(gen, b, s, h, g, d, torch.bfloat16, dev)
+    out, lse = fops.flash_attention_fwd(q, k, v, causal=True,
+                                        return_lse=True)
+    errs = {"flash_fwd": check_close("flash_fwd", out, fref.attention_ref(
+        q, k, v, causal=True), "at a process's Llama shape (h 12, g 4)")}
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    got = fops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
+    want = fref.attention_bwd_ref(q, k, v, out, lse, dout, causal=True)
+    errs["flash_bwd"] = max(check_close("flash_bwd", a, w, f"d{n} at a "
+                                        "process's Llama shape")
+                            for n, a, w in zip("qkv", got, want))
+    fwd_flops = 4 * b * h * d * s * (s + 1) / 2
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    kern = lambda: fops.flash_attention_fwd(q, k, v, causal=True)  # noqa
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    with torch.no_grad():
+        turns = [cuda_ms(kern, 20), cuda_ms(lib, 20), cuda_ms(kern, 20)]
+    shape = dict(TP_FLASH, causal=True)
+    bnd, bby = bound(2 * (2 * b * s * h * d + 2 * b * s * g * d), fwd_flops,
+                     PEAK_BF16_FLOPS)
+    rows = [{"name": "flash_fwd", "cell": "tp llama3.2-3b", "shape": shape,
+             "launches": launches["flash_fwd"],
+             "max_abs_err": errs["flash_fwd"],
+             "ms": (turns[0] + turns[2]) / 2,
+             "plain_ms": cuda_ms(lambda: fref.attention_ref(
+                 q, k, v, causal=True), 3),
+             "bound_ms": bnd, "bound_by": bby, "library_ms": turns[1],
+             "flops": fwd_flops}]
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+    kern = lambda: fops.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, lse, dout, causal=True)
+    lib = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,  # noqa: E731
+                                      retain_graph=True)
+    turns = [cuda_ms(kern, 10), cuda_ms(lib, 10), cuda_ms(kern, 10)]
+    flops = 2.5 * fwd_flops
+    bnd, bby = bound(2 * (4 * b * s * h * d + 4 * b * s * g * d)
+                     + 4 * b * s * h, flops, PEAK_BF16_FLOPS)
+    rows.append({"name": "flash_bwd", "cell": "tp llama3.2-3b",
+                 "shape": shape, "launches": launches["flash_bwd"],
+                 "max_abs_err": errs["flash_bwd"],
+                 "ms": (turns[0] + turns[2]) / 2,
+                 "plain_ms": cuda_ms(lambda: fref.attention_bwd_ref(
+                     q, k, v, out, lse, dout, causal=True), 3),
+                 "bound_ms": bnd, "bound_by": bby, "library_ms": turns[1],
+                 "flops": flops})
+    del q, k, v, out, lse, dout, qt, kt, vt, ot, dot
+    b, c, qq, g, r, p, n = (TP_SSD[k] for k in ("b", "c", "q", "g", "r",
+                                                  "p", "n"))
+    x, dt, cum, bm, cm = ssd_inputs(gen, b, c, qq, g, r, p, n,
+                                    torch.bfloat16, dev)
+    errs["ssd_diag"] = check_close("ssd_diag", sops.ssd_diag(
+        x, dt, cum, bm, cm, r, out_dtype=torch.float32), sref.ssd_diag_ref(
+        x, dt, cum, bm, cm, r, out_dtype=torch.float32),
+        "at a process's Mamba2 shape (40 heads)")
+    # zoo_timings' bound: the bytes once, the products on the tensor cores
+    pairs = qq * (qq + 1) / 2
+    h = g * r
+    nbytes = b * c * qq * (h * p * 2 + 2 * h * 4 + 2 * g * n * 2 + h * p * 4)
+    y_flops, s_flops = 2 * b * c * pairs * h * p, 2 * b * c * pairs * g * n
+    tc_flops = 2 * y_flops + s_flops * PEAK_TF32_FLOPS / PEAK_BF16_FLOPS
+    bnd, bby = bound(nbytes, tc_flops, PEAK_TF32_FLOPS)
+    ins = (x, dt, cum, bm, cm)
+    turns = [cuda_ms(lambda: sops.ssd_diag(*ins, r, out_dtype=torch.float32),
+                     20),
+             cuda_ms(lambda: sref.ssd_diag_ref(*ins, r, torch.float32), 5),
+             cuda_ms(lambda: sops.ssd_diag(*ins, r, out_dtype=torch.float32),
+                     20)]
+    rows.append({"name": "ssd_diag", "cell": "tp mamba2-2.7b",
+                 "shape": dict(TP_SSD), "launches": launches["ssd_diag"],
+                 "max_abs_err": errs["ssd_diag"],
+                 "ms": (turns[0] + turns[2]) / 2, "plain_ms": turns[1],
+                 "bound_ms": bnd, "bound_by": bby, "library_ms": None,
+                 "flops": tc_flops})
+    for row in rows:
+        print(f"tp timing {row['name']} at {row['cell']}'s process shape "
+              f"{json.dumps(row['shape'])}: kernel {row['ms']:.4f} ms, "
+              f"library {row['library_ms']}, plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); launches "
+              f"{json.dumps(row['launches'])} ({CARD})")
+    return rows
+
+
+def tp_report(outs: list[dict]) -> dict:
+    """phase_tp's checks across its processes' results (:func:`_tp_worker`),
+    printed; the phase's row."""
+    row = {"card": CARD, "model": TP_MODEL, "smoke": outs[0]["smoke"],
+           "gloo_64mib_ms": [o["gloo_64mib_ms"] for o in outs]}
+    print(f"tp: gloo's sum and max all-reduce, all-gather and reduce-scatter "
+          f"of bf16 and f32 CUDA tensors exact, no upcast; a 64 MiB sum "
+          f"all-reduce a process: {json.dumps(row['gloo_64mib_ms'])} ms "
+          f"({CARD})")
+    for arch in TP_SMOKE:
+        print(f"tp smoke {arch} (f32) on data 1 x model 2 against one "
+              f"device: {json.dumps(outs[0]['smoke'][arch])}")
+    for arch, (plen, kernel, (clen, steps)) in TP_CELLS.items():
+        cfg_layers = {"flash_fwd": 28, "ssd_diag": 64}[kernel]
+        rows = [o["serve"][arch] for o in outs]
+        for r, got in enumerate(rows):
+            if got["launches"][kernel] != cfg_layers or \
+                    got["kernel_calls"] != cfg_layers:
+                fail(f"tp {arch}: process {r} launched {kernel} "
+                     f"{got['launches'][kernel]} times a generate "
+                     f"({got['kernel_calls']} calls), not {cfg_layers}")
+            want = [[12, 4]] if kernel == "flash_fwd" else [[40]]
+            if [list(x) for x in got["heads"]] != want:
+                fail(f"tp {arch}: process {r} ran {kernel} at heads "
+                     f"{got['heads']}, not {want}")
+        if rows[0]["tokens"] != rows[1]["tokens"]:
+            fail(f"tp {arch}: the processes returned other tokens")
+        err = max(g["consistency"][0] for g in rows)
+        top = max(g["consistency"][1] for g in rows)
+        limit = CONSISTENCY_BF16_RTOL[arch]
+        layer = [g["layer_err"] for g in rows if "layer_err" in g]
+        cut = [g["f32_cut_err"] for g in rows if "f32_cut_err" in g]
+        print(f"tp {arch} bf16 on data 1 x model 2: prefill logits within "
+              f"{max(g['logit_err'] for g in rows):.4g} of one device's "
+              f"(limit {TP_BF16_LOGIT_RTOL[arch]:.4g}); "
+              + (f"its first layer alone within {max(layer):.4g} (limit "
+                 f"{SSM_LAYER_BF16_RTOL:.4g}); " if layer else "")
+              + (f"f32 at {TP_F32_CUT[arch][0]} layers, prefill "
+                 f"{TP_F32_CUT[arch][1]} + {TP_F32_CUT[arch][2]} decode "
+                 f"steps, within {max(cut):.4g} of one device's (limit "
+                 f"{TP_LOGIT_RTOL:.4g}); " if cut else "")
+              + f"consistency prefill "
+              f"{clen} vs prefill {clen - steps} + {steps} decode "
+              f"steps: {err:.4g} of max|logits| {top:.4g} (limit "
+              f"{limit * top:.4g}; {rows[0]['consistency_ms_gloo']:.0f} ms); "
+              f"launches a generate a process "
+              f"{json.dumps(rows[0]['launches'])}; heads {rows[0]['heads']}; "
+              f"gloo through the host: generate prefill "
+              f"{rows[0]['generate_prefill_ms_gloo']:.1f} ms, decode "
+              f"{rows[0]['generate_decode_ms_gloo']:.1f} ms; peak GiB "
+              f"{[g['peak_gib'] for g in rows]} ({CARD})")
+        if not err <= limit * top:
+            fail(f"tp {arch}: prefill/decode consistency {err} > {limit} * "
+                 f"{top}")
+        row[arch] = {k: [g[k] for g in rows if k in g] for k in
+                     ("logit_err", "layer_err", "f32_cut_err",
+                      "consistency_ms_gloo",
+                      "generate_prefill_ms_gloo", "generate_decode_ms_gloo",
+                      "peak_gib")}
+        row[arch].update(consistency=(err, top), launches=rows[0]["launches"],
+                         heads=rows[0]["heads"])
+    train = [o["train"] for o in outs]
+    one_loss, one_norm = train[0]["one_device"]
+    from repro_torch.configs import get
+    want = train_launches(get("llama3.2-3b"))
+    for r, got in enumerate(train):
+        if any(got["launches"][k] != n for k, n in want.items()):
+            fail(f"tp train: process {r} launched {got['launches']}, not "
+                 f"{want} a step")
+        if not abs(got["loss"] - one_loss) <= TP_BF16_LOSS_RTOL * one_loss:
+            fail(f"tp train: process {r}'s loss {got['loss']} against one "
+                 f"device's {one_loss}")
+        if not abs(got["grad_norm"] - one_norm) <= \
+                TP_BF16_GRAD_NORM_RTOL * one_norm:
+            fail(f"tp train: process {r}'s reduced-gradient norm "
+                 f"{got['grad_norm']} against one device's {one_norm}")
+    print(f"tp train Llama 3.2 3B 4 x 2048 bf16 on data 1 x model 2: losses "
+          f"{[g['loss'] for g in train]} against one device's {one_loss} "
+          f"(limit {TP_BF16_LOSS_RTOL:.4g} relative); reduced-gradient norms "
+          f"{[g['grad_norm'] for g in train]} against {one_norm} (limit "
+          f"{TP_BF16_GRAD_NORM_RTOL:.4g} relative); launches a "
+          f"process {json.dumps(train[0]['launches'])}; step ms (gloo "
+          f"through the host) {[round(g['step_ms_gloo'], 1) for g in train]}"
+          f"; peak GiB {[g['peak_gib'] for g in train]} ({CARD})")
+    row["train"] = {"losses": [g["loss"] for g in train],
+                    "one_device": [one_loss, one_norm],
+                    "grad_norms": [g["grad_norm"] for g in train],
+                    "launches": train[0]["launches"],
+                    "step_ms_gloo": [g["step_ms_gloo"] for g in train],
+                    "peak_gib": [g["peak_gib"] for g in train]}
+    return row
+
+
+def phase_tp(dev) -> dict:
+    """Slice 13: tensor parallel on two processes of the one card (a data 1
+    x model 2 mesh, gloo carrying CUDA tensors): (a) the f32 smoke Llama,
+    Gemma 3 and Mamba2 on the mesh against one device (prefill logits
+    within 1e-4 of the largest, 8 greedy tokens equal, one train step's
+    loss within 1e-5 relative and each gradient leaf within 1e-4 of its
+    largest); (b) at full width, bf16, batch 4 x 2048 + 32 new tokens:
+    Llama 3.2 3B and Mamba2 2.7B served on the mesh (Llama's prefill
+    logits within 2^-4 of one device's, Mamba2's to its bf16 drift, its
+    first layer to 2^-4 and its first 8 layers in f32 to 1e-4 through a
+    prefill and 8 decode steps; a generate's 28 flash_fwd at 12 q and 4 kv
+    heads and 64 ssd_diag at 40 heads a process, prefill/decode consistency
+    at the serve limits), and one Llama train step (loss within 2^-7 and
+    the reduced-gradient norm within 1e-3 of one device's, 56/28
+    flash_fwd/flash_bwd a process, peak GiB a process);
+    (c) a process's kernel shapes against their plain versions, timed
+    beside SDPA and their bounds.  Wall times of (a) and (b) are gloo's
+    through the host, not a tensor-parallel speed."""
+    torch.cuda.empty_cache()
+    outs = tp_processes({"device": "cuda", "smoke": list(TP_SMOKE),
+                         "serve": list(TP_CELLS), "train": True},
+                        ROOT / "build" / "chip_smoke" / "tp")
+    row = tp_report(outs)
+    step = row["train"]["launches"]
+    launches = {"flash_fwd": {"generate": row["llama3.2-3b"]["launches"][
+        "flash_fwd"], "train_step": step["flash_fwd"]},
+        "flash_bwd": {"train_step": step["flash_bwd"]},
+        "ssd_diag": {"generate": row["mamba2-2.7b"]["launches"]["ssd_diag"]}}
+    row["kernels"] = tp_kernel_rows(dev, launches)
+    return row
+
+
 def launch_cost(tree: Path) -> dict:
     """Host microseconds per call (:func:`host_us`, LAUNCH_COST_CALLS calls
     a case) of the proxy-block wrappers of the checkout ``tree`` at the
@@ -3485,6 +4186,10 @@ def main() -> None:
     dp_train = phase_dp_train(dev)
     dp_train["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"dp_train": dp_train}))
+    t0 = time.perf_counter()
+    tp = phase_tp(dev)
+    tp["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"tp": tp}))
     print(json.dumps({"shapes": phase_shape_timings(dev, errs, serve,
                                                      train)}))
     t0 = time.perf_counter()

@@ -14,9 +14,13 @@ All five scenarios trace, and :func:`ingest_scenarios` streams them into a
 :func:`rules_for` is a config's logical-axis rules (the defaults with the
 config's ``rules_overrides``); :func:`param_specs` and :func:`batch_specs`
 pair each parameter and batch array, as a meta tensor, with its
-:class:`~repro_torch.sharding.partition.PartitionSpec` on a mesh.  The
-decode-cache and dry-run input specs (``cache_specs``, ``input_specs``)
-wait for the sharding substrate (ROADMAP, queue 1, item 12).
+:class:`~repro_torch.sharding.partition.PartitionSpec` on a mesh, and
+:func:`cache_specs` and :func:`input_specs` the decode cache and the
+dry-run argument tuples (train: params, optimizer state, batch; prefill:
+params, batch; decode: params, cache, batch, position) the same way.  The
+decode cache's layout is what ``model.init_cache(mesh=)`` allocates and
+the sharded decode step executes; the dry run that lowers these arguments
+waits (ROADMAP, queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -101,6 +105,46 @@ def param_specs(cfg: ArchConfig, mesh, rules=None) -> dict:
         lambda t, ax: MetaSpec(t, sharding_for_shape(tuple(t.shape), ax, mesh,
                                                      rules)),
         init_abstract(cfg), logical_axes_tree(cfg))
+
+
+def cache_specs(cfg: ArchConfig, shape: RunShape, mesh, rules=None):
+    """The decode cache of ``shape`` (its global batch and context) as
+    MetaSpecs, in the cache's structure."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import abstract_cache, cache_logical_axes
+    rules = rules or rules_for(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    return tree_map(
+        lambda t, ax: MetaSpec(t, sharding_for_shape(tuple(t.shape), ax, mesh,
+                                                     rules)),
+        abstract_cache(cfg, b, s), cache_logical_axes(cfg, b, s))
+
+
+def input_specs(arch_id: str, shape_name: str, mesh, *,
+                with_opt: bool = True):
+    """``(cfg, args)``: the step's argument tuple of (arch x shape) as
+    MetaSpecs, as the reference's ``input_specs`` gives them.
+
+    train   -> (params, opt_state, batch)   (``with_opt=False``: no
+               opt_state)
+    prefill -> (params, batch)
+    decode  -> (params, cache, batch, pos)
+    """
+    from repro_torch.configs.base import SHAPES
+    cfg = get(arch_id)
+    shape = SHAPES[shape_name]
+    rules = rules_for(cfg)
+    params = param_specs(cfg, mesh, rules)
+    batch = batch_specs(cfg, shape, mesh, rules)
+    if shape.kind == "train":
+        if not with_opt:
+            return cfg, (params, batch)
+        from repro_torch.train.optimizer import abstract_opt_state
+        return cfg, (params, abstract_opt_state(params), batch)
+    if shape.kind == "prefill":
+        return cfg, (params, batch)
+    pos = MetaSpec(_meta((), torch.int32), PartitionSpec())
+    return cfg, (params, cache_specs(cfg, shape, mesh, rules), batch, pos)
 
 
 # ---------------------------------------------------------------------------

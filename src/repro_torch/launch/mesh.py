@@ -18,12 +18,26 @@ every function here raises.
 sweep (:meth:`repro_torch.core.replay.ProxyProgram.mesh_sweep_plan`): the
 groups a placement's collectives run on.
 
-The data-parallel trainer (:mod:`repro_torch.train.loop`) and the
-instrumented collectives on real tensors
-(:func:`repro_torch.sharding.collectives.bind_mesh`) run on these meshes
-too, over the groups of :func:`mesh_groups`, built once a mesh.
-``make_production_mesh`` (256 devices, the multi-pod dry run) is not
+The trainer and the serve engine (:mod:`repro_torch.train.loop`,
+:mod:`repro_torch.serve.engine`: data-parallel, tensor-parallel and FSDP
+through :mod:`repro_torch.sharding.spmd`) and the instrumented collectives
+on real tensors (:func:`repro_torch.sharding.collectives.bind_mesh`) run on
+these meshes too, over the groups of :func:`mesh_groups`, built once a
+mesh.  ``make_production_mesh`` (256 devices, the multi-pod dry run) is not
 ported yet: it comes with ``dryrun`` (ROADMAP, queue 1, item 12).
+
+**One opt-in: CUDA tensors over gloo.**  ``make_test_mesh(...,
+device="cuda")`` builds a mesh whose tensors live on the current CUDA
+device under a gloo group: NCCL refuses two processes on one card
+("Duplicate GPU detected"), and gloo's all-reduce takes CUDA tensors
+(staged through the host).  Only the sharded model code's collectives
+(:mod:`repro_torch.sharding.spmd`) and the trainer's run there:
+``chip_smoke.py`` uses it to run two processes of a ``model`` axis on one
+card.  A mesh's device type is otherwise its backend's, and ``device=``
+other than that raises under any backend but gloo; NCCL stays the card's
+production backend.  The replay tier's collectives
+(:mod:`repro_torch.sharding.collectives`) take only what their backend
+runs (:func:`check_tensor_backend`).
 """
 from __future__ import annotations
 
@@ -54,14 +68,6 @@ def backend_device_type() -> str:
     return BACKEND_DEVICE[backend]
 
 
-def backend_device() -> torch.device:
-    """The device this process runs the group's tensors on: the CPU under
-    gloo, the current CUDA device under NCCL."""
-    if backend_device_type() == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
-
-
 def check_tensor_backend(backend: str, device: torch.device) -> None:
     """NCCL runs CUDA tensors and gloo CPU tensors; anything else raises
     (no staging through the host)."""
@@ -73,10 +79,17 @@ def check_tensor_backend(backend: str, device: torch.device) -> None:
             "nothing through the host")
 
 
-def _mk(shape: Sequence[int], names: Sequence[str], devices=None):
+def _mk(shape: Sequence[int], names: Sequence[str], devices=None,
+        device: str | None = None):
     from torch.distributed.device_mesh import DeviceMesh
 
     device_type = backend_device_type()
+    if device is not None and str(device) != device_type:
+        if str(device) != "cuda" or str(dist.get_backend()) != "gloo":
+            raise ValueError(f"a {device} mesh under {dist.get_backend()}: "
+                             "only gloo may carry CUDA tensors (the opt-in "
+                             "of make_test_mesh)")
+        device_type = "cuda"
     n = math.prod(int(s) for s in shape)
     ranks = list(range(n)) if devices is None else [int(d) for d in devices]
     world = dist.get_world_size()
@@ -92,9 +105,20 @@ def _mk(shape: Sequence[int], names: Sequence[str], devices=None):
                       mesh_dim_names=tuple(names))
 
 
-def make_test_mesh(data: int = 2, model: int = 2):
-    """Small 2-D mesh for tests."""
-    return _mk((data, model), ("data", "model"))
+def make_test_mesh(data: int = 2, model: int = 2,
+                   device: str | None = None):
+    """Small 2-D mesh for tests.  ``device="cuda"`` under gloo is the
+    opt-in of the module docstring: the mesh's tensors on the current CUDA
+    device."""
+    return _mk((data, model), ("data", "model"), device=device)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device a mesh's tensors live on: its device type (the backend's,
+    or CUDA by the gloo opt-in), the current CUDA device for CUDA."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def make_dp_mesh(n: int):

@@ -35,6 +35,7 @@ from repro_torch.models.layers import (
     rms_norm, torch_dtype, unembed,
 )
 from repro_torch.models.transformer import _stack, _write_back
+from repro_torch.sharding import spmd
 
 
 def _enc_layer(cfg: ArchConfig) -> dict:
@@ -141,9 +142,12 @@ def _decoder_forward(params: dict, x: torch.Tensor, enc: torch.Tensor,
     return rms_norm(x, params["final_norm"])
 
 
-def encdec_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def encdec_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
+                ) -> torch.Tensor:
     """Decoder CE loss: batch = {tokens, labels (b, s), audio_frames (b, F,
-    d)}."""
+    d)}.  On a mesh only where the rules split no parameter (this
+    process's rows); a sharded mesh raises (item 12)."""
+    spmd.context(mesh, cfg)
     enc = encode(params, batch["audio_frames"], cfg)
     x = _embed(params, batch["tokens"], cfg)
     h = _decoder_forward(params, x, enc, cfg)
@@ -153,11 +157,13 @@ def encdec_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 # -- prefill / decode ---------------------------------------------------------
 
 
-def encdec_prefill(params: dict, batch: dict, cfg: ArchConfig):
+def encdec_prefill(params: dict, batch: dict, cfg: ArchConfig, mesh=None):
     """Encode the audio and prefill the decoder tokens -> (last-position
     logits (b, vocab), cache).  The cache holds each decoder layer's self
     K/V and its cross K/V of the encoder states, in ``cfg.dtype``, stacked
-    on a leading layer dim (the reference's scan ys)."""
+    on a leading layer dim (the reference's scan ys).  ``mesh``: as
+    :func:`encdec_loss`."""
+    spmd.context(mesh, cfg)
     enc = encode(params, batch["audio_frames"], cfg)
     x = _embed(params, batch["tokens"], cfg)
     positions = _positions(x)
@@ -195,9 +201,10 @@ def init_encdec_cache(cfg: ArchConfig, batch: int, seq_len: int,
 
 
 def encdec_decode_step(params: dict, cache: dict, batch: dict, pos: int,
-                       cfg: ArchConfig):
+                       cfg: ArchConfig, mesh=None):
     """One new token against the cache: (logits (b, vocab), cache), the
-    self caches updated in place."""
+    self caches updated in place.  ``mesh``: as :func:`encdec_loss`."""
+    spmd.context(mesh, cfg)
     x = _embed(params, batch["tokens"], cfg)
 
     def body(h, pc):

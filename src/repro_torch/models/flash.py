@@ -10,8 +10,11 @@ the card and ``attention_bwd_ref`` on the CPU.  Without autograd (grad mode
 off, or no input that needs a gradient) this is the forward wrapper alone,
 which writes no LSE: the serve path launches what it launched before.
 
-The reference's sharding (``attn_mode``, ``_axes``, constraints) waits for
-the execution of sharded specs (ROADMAP, queue 1, item 12).  Its ``q_chunk``/``kv_chunk`` arguments are read
+On a mesh the kernels run on this process's heads (tensor parallel in
+``"heads"`` mode: :func:`attn_mode`): the projections come out as the
+local heads, contiguous, so the wrappers copy nothing.  The reference's
+other modes, ``"batch"`` and ``"cp"``, raise (ROADMAP, queue 1, item 12).
+The reference's ``q_chunk``/``kv_chunk`` arguments are read
 only on meta tensors, which the cost walker runs: there the wrappers
 compute the reference's blocked XLA flash at those blocks, so the walker
 charges what the reference's does.  The kernels take any s and t and
@@ -25,6 +28,46 @@ from repro_torch.kernels.flash_attention.ops import (
     flash_attention_bwd, flash_attention_fwd,
 )
 from repro_torch.kernels.flash_attention.ref import KV_CHUNK, Q_CHUNK
+from repro_torch.sharding.partition import SHARDED_EXECUTION, axis_sizes
+
+
+def _sizes(mesh) -> dict[str, int]:
+    """Axis sizes of a mesh, a geometry or an ``Spmd`` context."""
+    if mesh is None:
+        return {}
+    return axis_sizes(getattr(mesh, "sizes", mesh))
+
+
+def _tp_size(mesh) -> int:
+    return _sizes(mesh).get("model", 1)
+
+
+def _mesh_size(mesh) -> int:
+    n = 1
+    for s in _sizes(mesh).values():
+        n *= s
+    return n
+
+
+def attn_mode(mesh, n_heads: int, batch: int) -> str:
+    """The reference's attention sharding mode: ``"heads"`` (the heads
+    divide the model axis: tensor parallel over heads), else ``"batch"``
+    (the global batch divides the whole mesh), else ``"cp"`` (context
+    parallel over q chunks).  The port executes ``"heads"``."""
+    if n_heads % _tp_size(mesh) == 0:
+        return "heads"
+    if batch % _mesh_size(mesh) == 0:
+        return "batch"
+    return "cp"
+
+
+def check_heads_mode(mesh, n_heads: int, batch: int) -> None:
+    """Raise unless ``n_heads`` (all of them) run in ``"heads"`` mode."""
+    mode = attn_mode(mesh, n_heads, batch)
+    if mode != "heads":
+        raise NotImplementedError(
+            f"attention in {mode!r} mode ({n_heads} heads on a model axis "
+            f"of {_tp_size(mesh)}) {SHARDED_EXECUTION}")
 
 
 class _Flash(torch.autograd.Function):
@@ -52,7 +95,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (b,s,h,d), k/v: (b,t,g,d) -> (b,s,h,d) in q's dtype.
 
     ``q_chunk``/``kv_chunk``: the reference's blocks, read only on meta
-    tensors (what the cost walker charges); the kernels ignore them."""
+    tensors (what the cost walker charges); the kernels ignore them.  On a
+    mesh q/k/v are this process's heads (the caller checked
+    :func:`check_heads_mode`)."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _Flash.apply(q, k, v, causal, window, q_chunk, kv_chunk)
     return flash_attention_fwd(q, k, v, causal=causal, window=window,

@@ -6,8 +6,16 @@ returns the training loss, the prefill or the decode step; ``init_params``
 draws concrete weights on a device; ``params_from_numpy`` carries the
 reference's weights across value for value.  ``init_abstract`` and
 ``abstract_cache`` are the reference's shape-only stand-ins: meta tensors,
-which the cost walker runs on; ``logical_axes_tree`` the parameters'
-logical axes, as the reference's.  The encoder-decoder family
+which the cost walker runs on; ``logical_axes_tree`` and
+``cache_logical_axes`` the parameters' and the decode cache's logical
+axes, as the reference's.
+
+On a mesh (a ``DeviceMesh``, SPMD: :mod:`repro_torch.sharding.spmd`),
+``init_params``, ``params_from_numpy`` and ``init_cache`` give this
+process's blocks under the config's rules: the parameters drawn (or
+carried) whole, then cut, so a block is bit-equal to the slice of the
+single-device tree; the forward functions take ``mesh`` as their last
+argument, as the reference's do.  The encoder-decoder family
 (``family == "encdec"``) dispatches to :mod:`repro_torch.models.encdec`,
 every other family to :mod:`repro_torch.models.transformer`.
 """
@@ -23,6 +31,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import init_tree, logical_axes, tree_map
+from repro_torch.sharding.partition import (
+    entry_axes, local_copy, mesh_coord, sharding_for_shape,
+)
 
 
 def param_tree(cfg: ArchConfig) -> dict:
@@ -37,12 +48,35 @@ def logical_axes_tree(cfg: ArchConfig) -> dict:
     return logical_axes(param_tree(cfg))
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
-    """Concrete weights on ``device`` (default: the CUDA card; raises
-    without one).  The reference's init rule with torch's generator: the
-    structure, shapes and dtypes are the reference's, the values are not
-    (see ``layers.init_tree``)."""
-    return init_tree(param_tree(cfg), seed, resolve_device(device))
+def _device(device, mesh):
+    if mesh is not None and device is None:
+        from repro_torch.launch.mesh import mesh_device
+        return mesh_device(mesh)
+    return resolve_device(device)
+
+
+def _localizer(cfg: ArchConfig, mesh):
+    from repro_torch.configs.registry import rules_for
+    from repro_torch.sharding import spmd
+    spmd.context(mesh, cfg)              # raises for what does not execute
+    rules, coord = rules_for(cfg), mesh_coord(mesh)
+    return lambda shape, axes, t: local_copy(
+        t, sharding_for_shape(tuple(shape), axes, mesh, rules), mesh, coord)
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None, mesh=None
+                ) -> dict:
+    """Concrete weights on ``device`` (default: the CUDA card, or the
+    mesh's device; raises without one).  The reference's init rule with
+    torch's generator: the structure, shapes and dtypes are the
+    reference's, the values are not (see ``layers.init_tree``).  On a
+    ``mesh``, this process's block of each leaf (drawn whole, then cut)."""
+    dev = _device(device, mesh)
+    if mesh is None:
+        return init_tree(param_tree(cfg), seed, dev)
+    cut = _localizer(cfg, mesh)
+    return init_tree(param_tree(cfg), seed, dev,
+                     local=lambda p, t: cut(p.shape, p.axes, t))
 
 
 def init_abstract(cfg: ArchConfig) -> dict:
@@ -62,12 +96,19 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree, device=None) -> dict:
+def params_from_numpy(tree, device=None, mesh=None,
+                      cfg: ArchConfig | None = None) -> dict:
     """The reference's parameter tree as numpy arrays (``jax.tree.map(
     np.asarray, repro.models.model.init_params(cfg, seed))``) as the port's
-    tree of tensors on ``device``, value for value (bf16 included)."""
-    dev = resolve_device(device)
-    return tree_map(lambda a: _tensor(a, dev), tree)
+    tree of tensors on ``device``, value for value (bf16 included).  On a
+    ``mesh`` (with ``cfg``, whose rules and logical axes decide), this
+    process's block of each leaf."""
+    dev = _device(device, mesh)
+    if mesh is None:
+        return tree_map(lambda a: _tensor(a, dev), tree)
+    cut = _localizer(cfg, mesh)
+    return tree_map(lambda a, ax: cut(np.shape(a), ax, _tensor(a, dev)),
+                    tree, logical_axes_tree(cfg))
 
 
 def build_forward(cfg: ArchConfig, kind: str) -> Callable:
@@ -80,11 +121,15 @@ def build_forward(cfg: ArchConfig, kind: str) -> Callable:
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None,
-               n_frames: int = 0):
+               n_frames: int = 0, mesh=None):
     """Zero decode caches at context ``seq_len``; an encoder-decoder's
     cross K/V hold ``n_frames`` encoder states (default: the config's
-    ``n_audio_frames``)."""
-    dev = resolve_device(device)
+    ``n_audio_frames``).  On a ``mesh``, this process's block of each
+    buffer as ``registry.cache_specs`` lays it out (``batch`` over the
+    data axes, an attention cache's sequence over ``model``)."""
+    dev = _device(device, mesh)
+    if mesh is not None:
+        return _local_cache(cfg, batch, seq_len, dev, n_frames, mesh)
     if cfg.family == "encdec":
         return E.init_encdec_cache(cfg, batch, seq_len,
                                    n_frames or cfg.n_audio_frames, dev)
@@ -96,3 +141,70 @@ def abstract_cache(cfg: ArchConfig, batch: int, seq_len: int,
     """The decode cache as meta tensors: the reference's
     ``abstract_cache``."""
     return init_cache(cfg, batch, seq_len, "meta", n_frames)
+
+
+def cache_logical_axes(cfg: ArchConfig, batch: int, seq_len: int,
+                       n_frames: int = 0):
+    """The logical axes of the decode cache, in its structure (the
+    reference's walk: an SSM cache's ``state`` and ``conv`` by name, every
+    other 4-dim leaf an attention cache, a 5-dim one a stacked one)."""
+    from repro_torch.models.attention import KVCache
+
+    def kv(nd):
+        base = ("batch", "kv_seq", "kv_heads", "head_dim")
+        return base if nd == 4 else ("layers",) + base if nd == 5 \
+            else (None,) * nd
+
+    def named(k, nd):
+        base = {"state": ("batch", "ssm_heads", "head_dim", "ssm_state"),
+                "conv": ("batch", None, "conv_dim")}[k]
+        return base if nd == len(base) else ("layers",) + base
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: named(k, v.dim()) if k in ("state", "conv")
+                    else walk(v) for k, v in node.items()}
+        if isinstance(node, KVCache):
+            return KVCache(kv(node.k.dim()), kv(node.v.dim()))
+        if isinstance(node, tuple):
+            return tuple(walk(v) for v in node)
+        return kv(node.dim())
+
+    return walk(abstract_cache(cfg, batch, seq_len, n_frames))
+
+
+def _local_cache(cfg, batch, seq_len, dev, n_frames, mesh):
+    """:func:`init_cache`'s blocks on a mesh; raises where a buffer would
+    be split in a way the decode step does not execute."""
+    from repro_torch.configs.registry import rules_for
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.partition import axis_sizes, block_of
+    ctx = spmd.context(mesh, cfg)
+    rules, coord, sizes = rules_for(cfg), mesh_coord(mesh), axis_sizes(mesh)
+
+    def one(meta, axes):
+        spec = sharding_for_shape(tuple(meta.shape), axes, mesh, rules)
+        shape = list(meta.shape)
+        for dim, entry in enumerate(spec):
+            split = [a for a in entry_axes(entry) if sizes[a] > 1]
+            kept = axes[dim] == "batch" or (
+                ctx is not None and axes[dim] in ("kv_seq", "ssm_heads",
+                                                  "conv_dim"))
+            if split and not kept:
+                raise NotImplementedError(
+                    f"{cfg.name}: a decode cache of {tuple(meta.shape)} "
+                    f"split {spec} on {sizes} (item 12)")
+            shape[dim] //= block_of(entry, mesh, coord)[1]
+        if ctx is not None and ctx.tp > 1 and "kv_seq" in axes:
+            dim = axes.index("kv_seq")
+            if "model" not in entry_axes(spec[dim] if dim < len(spec)
+                                         else None):
+                raise NotImplementedError(
+                    f"{cfg.name}: a decode cache of {meta.shape[dim]} "
+                    f"positions does not split over the model axis of "
+                    f"{ctx.tp}: the sequence-split decode needs a length "
+                    "it divides (ROADMAP, queue 1, item 12)")
+        return torch.zeros(shape, dtype=meta.dtype, device=dev)
+
+    return tree_map(one, abstract_cache(cfg, batch, seq_len, n_frames),
+                    cache_logical_axes(cfg, batch, seq_len, n_frames))

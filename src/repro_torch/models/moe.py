@@ -3,8 +3,10 @@ data shard, batched expert SwiGLU.
 
 The port of ``src/repro/models/moe.py`` (``moe_params``, ``moe_apply``)
 without a mesh: one data shard (``n_sh = 1``), in the reference's
-``(n_sh, tl, d)`` layout, so expert routing across a data mesh (ROADMAP,
-queue 1, item 12) can add shards.
+``(n_sh, tl, d)`` layout.  On a mesh that splits its parameters a MoE
+layer raises: experts on ``model``, Mixtral's ``expert_ffn`` and expert
+routing across a data mesh (global capacity and aux loss, added as shards
+of this layout) wait for ROADMAP's queue 1, item 12.
 It computes what the reference computes, with three points where a
 literal translation of the jnp would not:
 

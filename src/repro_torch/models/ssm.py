@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.core.tracer import einsum, matmul, scan_loop
 from repro_torch.kernels.ssd.ops import ssd_diag
 from repro_torch.models.layers import Param
+from repro_torch.sharding.spmd import kv_groups
 
 CONV_W = 4
 
@@ -73,9 +74,16 @@ def _causal_conv(x, w, b):
     return F.silu(out + b)
 
 
-def _rms(x, w, eps=1e-6):
+def _rms(x, w, eps=1e-6, mesh=None):
+    """The gated norm's RMS over the last dim; on a mesh that dim is this
+    process's block of ``d_in``, and the sum of squares is all-reduced."""
     xf = x.float()
-    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    if mesh is None:
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    else:
+        ms = mesh.reduce_partial((xf * xf).sum(dim=-1, keepdim=True)) \
+            / (x.shape[-1] * mesh.tp)
+    xf = xf * torch.rsqrt(ms + eps)
     return (xf * (1.0 + w)).to(x.dtype)
 
 
@@ -136,9 +144,81 @@ def ssd_chunked(x, dt, a, bm, cm, chunk: int, return_final: bool = False):
     return y
 
 
+class _Deal:
+    """A mesh's re-deal of the SSM's columns for this process: the whole
+    in_proj and conv weights, and the column ranges of its heads and
+    groups."""
+
+    def __init__(self, p, d: int, head_dim: int, n_state: int,
+                 n_groups: int, expand: int, mesh):
+        self.mesh = mesh
+        d_in = expand * d
+        h = d_in // head_dim
+        gn = n_groups * n_state
+        self.proj_shape = (d, 2 * d_in + 2 * gn + h)
+        self.conv_dim = d_in + 2 * gn
+        hl = h // mesh.tp
+        r = mesh.r
+        glo, ghi = kv_groups(h, n_groups, mesh.tp, r)
+        self.hl, self.gl = hl, ghi - glo
+        x0 = r * hl * head_dim
+        xl = hl * head_dim
+        self.z = (x0, x0 + xl)
+        self.x = (d_in + x0, d_in + x0 + xl)
+        self.b = (2 * d_in + glo * n_state, 2 * d_in + ghi * n_state)
+        self.c = (2 * d_in + gn + glo * n_state, 2 * d_in + gn + ghi * n_state)
+        dt0 = 2 * d_in + 2 * gn
+        self.dt = (dt0 + r * hl, dt0 + (r + 1) * hl)
+        # the same columns within conv_dim ([x | B | C])
+        self.conv = [(a - d_in, b - d_in) for a, b in (self.x, self.b, self.c)]
+        self.in_proj = mesh.unshard(p["in_proj"], self.proj_shape,
+                                    ("embed", "conv_dim"))
+        self.proj_split = bool(mesh.split(self.proj_shape,
+                                          ("embed", "conv_dim"), 1))
+        cshape = (CONV_W, self.conv_dim)
+        self.conv_split = bool(mesh.split(cshape, (None, "conv_dim"), 1))
+        self.conv_w = self._whole(p["conv_w"], 1)
+        self.conv_b = self._whole(p["conv_b"], 0)
+        self.out_proj = mesh.unshard(p["out_proj"], (d_in, d),
+                                     ("ffn", "embed"))
+
+    def _whole(self, t, dim: int):
+        return self.mesh.gather(t, dim) if self.conv_split else t
+
+    def project(self, x):
+        """``x @ in_proj`` with every column, from this process's block:
+        the weight gathered, or the output where it is the smaller."""
+        x = self.mesh.copy(x)
+        if not self.proj_split:
+            return x @ self.in_proj
+        rows = x.numel() // x.shape[-1]
+        if rows > self.proj_shape[0]:
+            return x @ self.mesh.gather(self.in_proj, 1)
+        return self.mesh.gather(x @ self.in_proj, -1)
+
+    @staticmethod
+    def cols(t, *ranges):
+        return torch.cat([t[..., a:b] for a, b in ranges], dim=-1) \
+            if len(ranges) > 1 else t[..., ranges[0][0]:ranges[0][1]]
+
+    def conv_block(self, t):
+        """This process's ``conv_dim`` block of a whole-column tensor."""
+        if not self.conv_split:
+            return t
+        idx, n = self.mesh.block()
+        size = self.conv_dim // n
+        return t[..., idx * size:(idx + 1) * size]
+
+
 def ssm_apply(p, x, *, head_dim: int, n_state: int, n_groups: int,
-              expand: int, chunk: int, return_cache: bool = False):
+              expand: int, chunk: int, return_cache: bool = False,
+              mesh=None):
     """Full Mamba2 mixer on (b, l, d) → (b, l, d) [, decode cache]."""
+    if mesh is not None:
+        return _ssm_apply_split(p, x, head_dim=head_dim, n_state=n_state,
+                                n_groups=n_groups, expand=expand,
+                                chunk=chunk, return_cache=return_cache,
+                                mesh=mesh)
     b, l, d = x.shape
     d_in = expand * d
     h = d_in // head_dim
@@ -169,6 +249,39 @@ def ssm_apply(p, x, *, head_dim: int, n_state: int, n_groups: int,
     return out
 
 
+def _ssm_apply_split(p, x, *, head_dim, n_state, n_groups, expand, chunk,
+                     return_cache, mesh):
+    """:func:`ssm_apply` on this process's heads (module docstring)."""
+    b, l, d = x.shape
+    deal = _Deal(p, d, head_dim, n_state, n_groups, expand, mesh)
+    zxbcdt = deal.project(x)
+    z = deal.cols(zxbcdt, deal.z)
+    dt = deal.cols(zxbcdt, deal.dt)
+    conv_in = deal.cols(zxbcdt, deal.x, deal.b, deal.c)
+    conv_out = _causal_conv(conv_in, deal.cols(deal.conv_w, *deal.conv),
+                            deal.cols(deal.conv_b, *deal.conv))
+    xl = deal.hl * head_dim
+    gn = deal.gl * n_state
+    xs, bm, cm = (conv_out[..., :xl], conv_out[..., xl:xl + gn],
+                  conv_out[..., xl + gn:])
+    dtv = _softplus(dt.float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    xh = xs.reshape(b, l, deal.hl, head_dim)
+    res = ssd_chunked(xh, dtv, a, bm.reshape(b, l, deal.gl, n_state),
+                      cm.reshape(b, l, deal.gl, n_state), chunk,
+                      return_final=return_cache)
+    y, final = res if return_cache else (res, None)
+    y = y + p["d_skip"][None, None, :, None].to(y.dtype) * xh
+    y = y.reshape(b, l, xl)
+    y = _rms(y, p["norm_w"], mesh=mesh) * F.silu(z)
+    out = mesh.reduce(y @ deal.out_proj).to(x.dtype)
+    if return_cache:
+        tail = zxbcdt[:, l - (CONV_W - 1):]
+        whole = tail[..., expand * d:expand * d + deal.conv_dim]
+        return out, {"state": final, "conv": deal.conv_block(whole)}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # decode (O(1) state)
 # ---------------------------------------------------------------------------
@@ -188,9 +301,20 @@ def init_ssm_cache(batch: int, d: int, *, expand: int, head_dim: int,
     }
 
 
+def ssm_cache_axes() -> dict:
+    return {"state": ("batch", "ssm_heads", "head_dim", "ssm_state"),
+            "conv": ("batch", None, "conv_dim")}
+
+
 def ssm_decode(p, x, cache: dict, *, head_dim: int, n_state: int,
-               n_groups: int, expand: int):
-    """One-token decode; x: (b, 1, d) → (out (b,1,d), new cache)."""
+               n_groups: int, expand: int, mesh=None):
+    """One-token decode; x: (b, 1, d) → (out (b,1,d), new cache).  On a
+    mesh the cache is this process's block: the state of its heads, the
+    conv history of its ``conv_dim`` columns."""
+    if mesh is not None:
+        return _ssm_decode_split(p, x, cache, head_dim=head_dim,
+                                 n_state=n_state, n_groups=n_groups,
+                                 expand=expand, mesh=mesh)
     b, _, d = x.shape
     d_in = expand * d
     h = d_in // head_dim
@@ -221,4 +345,37 @@ def ssm_decode(p, x, cache: dict, *, head_dim: int, n_state: int,
     y = y.reshape(b, d_in)
     y = _rms(y, p["norm_w"]) * F.silu(z).float()
     out = matmul(y, p["out_proj"])[:, None].to(x.dtype)
+    return out, {"state": state, "conv": new_conv}
+
+
+def _ssm_decode_split(p, x, cache, *, head_dim, n_state, n_groups, expand,
+                      mesh):
+    b, _, d = x.shape
+    d_in = expand * d
+    deal = _Deal(p, d, head_dim, n_state, n_groups, expand, mesh)
+    zxbcdt = deal.project(x[:, 0])                           # (b, proj)
+    conv_in = zxbcdt[..., d_in:d_in + deal.conv_dim]         # every column
+    hist = torch.cat([deal._whole(cache["conv"], 2), conv_in[:, None]], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", hist, deal.conv_w) + deal.conv_b
+    conv_out = F.silu(conv_out)
+    new_conv = deal.conv_block(hist[:, 1:])
+    xs = deal.cols(conv_out, deal.conv[0])
+    bm = deal.cols(conv_out, deal.conv[1]).reshape(b, deal.gl, n_state)
+    cm = deal.cols(conv_out, deal.conv[2]).reshape(b, deal.gl, n_state)
+    z = deal.cols(zxbcdt, deal.z)
+    dt = deal.cols(zxbcdt, deal.dt)
+    dtv = _softplus(dt.float() + p["dt_bias"])               # (b,hl)
+    a = -torch.exp(p["a_log"])
+    da = torch.exp(dtv * a)
+    xh = xs.reshape(b, deal.hl, head_dim).float()
+    r = deal.hl // deal.gl
+    bh = bm.repeat_interleave(r, dim=1).float()
+    ch = cm.repeat_interleave(r, dim=1).float()
+    state = cache["state"] * da[..., None, None] + \
+        (dtv[..., None] * xh)[..., None] * bh[:, :, None, :]
+    y = torch.einsum("bhpn,bhn->bhp", state, ch)
+    y = y + p["d_skip"][None, :, None] * xh
+    y = y.reshape(b, deal.hl * head_dim)
+    y = _rms(y, p["norm_w"], mesh=mesh) * F.silu(z).float()
+    out = mesh.reduce(matmul(y, deal.out_proj))[:, None].to(x.dtype)
     return out, {"state": state, "conv": new_conv}

@@ -24,6 +24,17 @@ config's dtype and normed by ``vision_norm`` (:func:`vision_states`); an
 cache, and decode reads them back.  As in the reference, an ``x`` layer's
 prefill projects the vision states to K/V twice (inside
 ``cross_attention`` and for the cache).
+
+The entry points take the reference's ``mesh``: a ``DeviceMesh``
+(:mod:`repro_torch.launch.mesh`) on which this process runs its part, SPMD.
+The parameters, the batch rows and the caches are this process's blocks
+(``partition.shard_params``, the batch's ``("batch", ...)`` spec,
+``model.init_cache(mesh=)``); prefill's logits are its vocab block.  Where
+the config's rules split parameters the layers run sharded
+(:mod:`repro_torch.sharding.spmd`): the dense and SSM families, on any
+``data × model`` (and ``pod``) mesh whose ``model`` axis divides their
+heads; the kinds ``s``/``x`` and MoE layers raise there (ROADMAP, queue 1,
+item 12).
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from repro_torch.models.layers import (
     Param, chunked_loss, embed_lookup, embed_params, mlp_apply, mlp_params,
     rms_norm, torch_dtype, unembed,
 )
+from repro_torch.sharding import spmd
 
 PORTED_KINDS = ("g", "l", "m", "s", "x")
 
@@ -164,8 +176,17 @@ def _write_back(dst: Any, src: Any) -> None:
             dst.copy_(src)
 
 
-def embed_inputs(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    x = embed_lookup(params["embed"], batch["tokens"])
+def _norm_w(mesh, w: torch.Tensor) -> torch.Tensor:
+    """A norm's weight (d,), its ``embed`` split gathered on a mesh."""
+    if mesh is None:
+        return w
+    return mesh.unshard(w, (mesh.cfg.d_model,), ("embed",))
+
+
+def embed_inputs(params: dict, batch: dict, cfg: ArchConfig, mesh=None
+                 ) -> torch.Tensor:
+    mesh = spmd.context(mesh, cfg)
+    x = embed_lookup(params["embed"], batch["tokens"], mesh)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
@@ -190,37 +211,42 @@ def _cross(cfg: ArchConfig, p: dict, x: torch.Tensor, vision, kv=None):
                                  n_kv=cfg.n_kv_heads, head_dim=cfg.hd, kv=kv)
 
 
-def _ffn(cfg: ArchConfig, li: int, p: dict, x: torch.Tensor):
+def _ffn(cfg: ArchConfig, li: int, p: dict, x: torch.Tensor, mesh=None):
     """The layer's feed-forward half: (x, MoE aux loss or None)."""
     if cfg.is_moe_layer(li):
         ff, aux = M.moe_apply(p["moe"], rms_norm(x, p["ln2"]), cfg.top_k,
                               cfg.capacity_factor)
         return x + ff, aux
     if cfg.d_ff:
-        x = x + mlp_apply(p["mlp"], rms_norm(x, p["ln2"]))
+        x = x + mlp_apply(p["mlp"], rms_norm(x, _norm_w(mesh, p["ln2"])),
+                          mesh)
     return x, None
 
 
 def _apply_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
-                 x: torch.Tensor, positions: torch.Tensor, vision=None):
+                 x: torch.Tensor, positions: torch.Tensor, vision=None,
+                 mesh=None):
     """One layer of the training forward (no cache): (x, aux or None)."""
-    h = rms_norm(x, p["ln1"])
+    h = rms_norm(x, _norm_w(mesh, p["ln1"]))
     if kind == "m":
         mix = S.ssm_apply(p["mixer"], h, head_dim=cfg.ssm_head_dim,
                           n_state=cfg.ssm_state, n_groups=cfg.ssm_groups,
-                          expand=cfg.ssm_expand, chunk=cfg.ssm_chunk)
+                          expand=cfg.ssm_expand, chunk=cfg.ssm_chunk,
+                          mesh=mesh)
     else:
         win = cfg.window if kind == "l" and cfg.window else None
         mix, _ = A.attention(p["attn"], h, positions, n_heads=cfg.n_heads,
                              n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                             theta=cfg.rope_theta, window=win, causal=True)
+                             theta=cfg.rope_theta, window=win, causal=True,
+                             mesh=mesh)
     x = x + mix
     if kind == "x":
         x = _cross(cfg, p, x, vision)
-    return _ffn(cfg, li, p, x)
+    return _ffn(cfg, li, p, x, mesh)
 
 
-def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, vision=None):
+def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, vision=None,
+             mesh=None):
     """Embedded input (b, s, d) -> (final hidden states (b, s, d), aux).
 
     aux is the MoE balance loss of the reference, summed over the MoE
@@ -229,6 +255,7 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, vision=None):
     vision states (:func:`vision_states`), which every ``x`` layer
     attends to."""
     check_ported(cfg)
+    mesh = spmd.context(mesh, cfg)
     u = unit_len(cfg)
     n_units = cfg.n_layers // u
     kinds = cfg.layer_kinds()
@@ -241,7 +268,7 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, vision=None):
     def unit_body(h, aux, unit_p, vis):
         for j in range(u):
             h, a = _apply_layer(cfg, kinds[j], j, unit_p[j], h, positions,
-                                vis)
+                                vis, mesh)
             aux = add(aux, a)
         return h, aux
 
@@ -255,18 +282,24 @@ def backbone(params: dict, x: torch.Tensor, cfg: ArchConfig, vision=None):
     x, aux = scan_loop(n_units, body, (x, aux), xs=params["unit"])
     for j, p in enumerate(params["rest"]):
         li = n_units * u + j
-        x, a = _apply_layer(cfg, kinds[li], li, p, x, positions, vision)
+        x, a = _apply_layer(cfg, kinds[li], li, p, x, positions, vision,
+                            mesh)
         aux = add(aux, a)
-    return rms_norm(x, params["final_norm"]), aux
+    return rms_norm(x, _norm_w(mesh, params["final_norm"])), aux
 
 
-def lm_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def lm_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
+            ) -> torch.Tensor:
     """Causal-LM CE loss (+ 0.01 x the MoE aux loss): batch =
     {tokens (b, s), labels (b, s)[, vision_embeds (b, n_vision_tokens, d)]}.
-    Builds no decode cache."""
-    x = embed_inputs(params, batch, cfg)
-    h, aux = backbone(params, x, cfg, vision_states(params, batch, cfg))
-    loss = chunked_loss(h, params["embed"], batch["labels"], cfg.loss_chunk)
+    Builds no decode cache.  On a mesh, the mean over this process's rows
+    (the same on each process of a ``model`` group)."""
+    mesh = spmd.context(mesh, cfg)
+    x = embed_inputs(params, batch, cfg, mesh)
+    h, aux = backbone(params, x, cfg, vision_states(params, batch, cfg),
+                      mesh)
+    loss = chunked_loss(h, params["embed"], batch["labels"], cfg.loss_chunk,
+                        mesh)
     return loss + 0.01 * aux
 
 
@@ -310,7 +343,7 @@ def init_lm_cache(cfg: ArchConfig, batch: int, seq_len: int, device) -> dict:
                           for j in range(cfg.n_layers % u))}
 
 
-def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
+def lm_prefill(params: dict, batch: dict, cfg: ArchConfig, mesh=None):
     """Full-sequence forward building decode caches.
 
     Returns (last-position logits (b, vocab), cache).  Attention caches hold
@@ -318,32 +351,35 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
     caches hold the final state and the conv tail; an ``x`` layer's cache
     is ``{"self": its KV cache, "xk", "xv": the cross K/V of the vision
     states}``.  The cache has the reference's stacked layout: the unit
-    scan's ys."""
+    scan's ys.  On a mesh the logits are this process's vocab block and
+    the K/V its kv heads (``attention.PREFILL_KV_AXES``)."""
     check_ported(cfg)
+    mesh = spmd.context(mesh, cfg)
     u = unit_len(cfg)
     n_units = cfg.n_layers // u
     kinds = cfg.layer_kinds()
-    x = embed_inputs(params, batch, cfg)
+    x = embed_inputs(params, batch, cfg, mesh)
     vision = vision_states(params, batch, cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     dt = torch_dtype(cfg.dtype)
 
     def prefill_layer(kind, li, p, h):
-        hh = rms_norm(h, p["ln1"])
+        hh = rms_norm(h, _norm_w(mesh, p["ln1"]))
         if kind == "m":
             mix, cache = S.ssm_apply(p["mixer"], hh, head_dim=cfg.ssm_head_dim,
                                      n_state=cfg.ssm_state,
                                      n_groups=cfg.ssm_groups,
                                      expand=cfg.ssm_expand,
-                                     chunk=cfg.ssm_chunk, return_cache=True)
+                                     chunk=cfg.ssm_chunk, return_cache=True,
+                                     mesh=mesh)
         else:
             win = cfg.window if kind == "l" and cfg.window else None
             mix, (k, v) = A.attention(p["attn"], hh, positions,
                                       n_heads=cfg.n_heads,
                                       n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                                       theta=cfg.rope_theta, window=win,
-                                      causal=True)
+                                      causal=True, mesh=mesh)
             cl = _cache_len(cfg, kind, s)
             if cl < s:
                 # ring layout: position p lives at slot p % window
@@ -355,7 +391,7 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
             h = _cross(cfg, p, h, vision)
             ck, cv = A.cross_kv(p["xattn"], vision, cfg.n_kv_heads, cfg.hd)
             cache = {"self": cache, "xk": ck.to(dt), "xv": cv.to(dt)}
-        return _ffn(cfg, li, p, h)[0], cache
+        return _ffn(cfg, li, p, h, mesh)[0], cache
 
     def unit_body(h, unit_p):
         caches = []
@@ -371,19 +407,19 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig):
         li = n_units * u + j
         x, c = prefill_layer(kinds[li], li, p, x)
         rest_cache.append(c)
-    x = rms_norm(x, params["final_norm"])
-    logits = unembed(x[:, -1:], params["embed"])[:, 0]
+    x = rms_norm(x, _norm_w(mesh, params["final_norm"]))
+    logits = unembed(x[:, -1:], params["embed"], mesh)[:, 0]
     return logits, {"unit": unit_cache, "rest": tuple(rest_cache)}
 
 
 def _decode_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
-                  x: torch.Tensor, c: Any, pos: int):
-    h = rms_norm(x, p["ln1"])
+                  x: torch.Tensor, c: Any, pos: int, mesh=None):
+    h = rms_norm(x, _norm_w(mesh, p["ln1"]))
     if kind == "m":
         mix, new = S.ssm_decode(p["mixer"], h, c, head_dim=cfg.ssm_head_dim,
                                 n_state=cfg.ssm_state,
                                 n_groups=cfg.ssm_groups,
-                                expand=cfg.ssm_expand)
+                                expand=cfg.ssm_expand, mesh=mesh)
     elif kind == "x":
         mix, selfc = A.decode_attention(p["attn"], h, c["self"], pos,
                                         n_heads=cfg.n_heads,
@@ -395,38 +431,43 @@ def _decode_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
         mix, new = A.decode_attention(p["attn"], h, c, pos,
                                       n_heads=cfg.n_heads,
                                       n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                                      theta=cfg.rope_theta, window=win)
+                                      theta=cfg.rope_theta, window=win,
+                                      mesh=mesh)
     _write_back(c, new)
     x = x + mix
     if kind == "x":
         x = _cross(cfg, p, x, None, kv=(c["xk"], c["xv"]))
-    return _ffn(cfg, li, p, x)[0]
+    return _ffn(cfg, li, p, x, mesh)[0]
 
 
 def lm_decode_step(params: dict, cache: dict, batch: dict, pos: int,
-                   cfg: ArchConfig):
+                   cfg: ArchConfig, mesh=None):
     """One new token against the cache.  batch = {tokens (b,1)}; an ``x``
     layer reads the vision states' K/V from its cache.
 
     Returns (logits (b, vocab), cache); the cache's buffers are updated in
-    place (the reference returns new ones)."""
+    place (the reference returns new ones).  On a mesh the cache is this
+    process's block (``model.init_cache(mesh=)``) and the logits its vocab
+    block."""
     check_ported(cfg)
+    mesh = spmd.context(mesh, cfg)
     u = unit_len(cfg)
     n_units = cfg.n_layers // u
     kinds = cfg.layer_kinds()
-    x = embed_inputs(params, batch, cfg)
+    x = embed_inputs(params, batch, cfg, mesh)
 
     def unit_body(h, pc):
         unit_p, unit_c = pc
         for j in range(u):
             h = _decode_layer(cfg, kinds[j], j, unit_p[j], h, unit_c[j],
-                              pos)
+                              pos, mesh)
         return h
 
     x = scan_loop(n_units, unit_body, x, xs=(params["unit"], cache["unit"]))
     for j, p in enumerate(params["rest"]):
         li = n_units * u + j
-        x = _decode_layer(cfg, kinds[li], li, p, x, cache["rest"][j], pos)
-    x = rms_norm(x, params["final_norm"])
-    logits = unembed(x[:, 0:1], params["embed"])[:, 0]
+        x = _decode_layer(cfg, kinds[li], li, p, x, cache["rest"][j], pos,
+                          mesh)
+    x = rms_norm(x, _norm_w(mesh, params["final_norm"]))
+    logits = unembed(x[:, 0:1], params["embed"], mesh)[:, 0]
     return logits, cache

@@ -17,23 +17,26 @@ dim, each ``None``, a mesh axis name, or a tuple of names; trailing
 here by the reference.  :func:`placements` turns a spec into
 ``torch.distributed.tensor`` placements.
 
-What executes on a mesh is the data-parallel trainer's
-(:mod:`repro_torch.train.loop`): it runs only where every parameter's spec
-is replicated.  Executing a sharded spec (tensor-parallel on ``model``,
-FSDP on ``data``) is the port's sharding substrate (ROADMAP, queue 1, item
-12), so :func:`constraint` is the identity off-mesh and on a replicated
-spec, and raises on a sharded one.
+A sharded tensor executes as a plain tensor holding this process's block
+of the global array (one process a device: :mod:`repro_torch.launch.mesh`).
+Each dim split by a spec entry is cut into equal blocks, one a position of
+the entry's axes, the first axis major (:func:`local_shard`), as a
+``NamedSharding`` places them on the reference's devices.
+:func:`gather_full` puts the blocks back together (collective), and
+:func:`shard_params` keeps the local block of every leaf of a tree.  The
+model code runs on such blocks through :mod:`repro_torch.sharding.spmd`.
+:func:`constraint` executes a spec on a tensor every process holds whole:
+it returns this process's block.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
-#: where a sharded spec would have to execute
-SHARDED_EXECUTION = ("executing a sharded parameter or activation "
-                     "(tensor-parallel on 'model', FSDP on 'data') waits for "
-                     "the port's sharding substrate (ROADMAP, queue 1, item "
-                     "12)")
+#: the end of every raise for a config and mesh pair the port does not
+#: execute yet
+SHARDED_EXECUTION = "waits for the rest of the sharding substrate (ROADMAP, " \
+    "queue 1, item 12)"
 
 #: default rules for the production meshes (the reference's table):
 #:   params:  TP over "model" (heads / ffn / vocab), replicated over data/pod
@@ -210,15 +213,99 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
                  for a in axis_sizes(mesh))
 
 
+def entry_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry, in order (``()`` for ``None``)."""
+    return (() if entry is None else
+            (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def block_of(entry, mesh, coord: dict) -> tuple[int, int]:
+    """(block index, number of blocks) of a dim split by the spec entry
+    ``entry``, for the process at mesh coordinate ``coord``: the first axis
+    major."""
+    sizes = axis_sizes(mesh)
+    idx, n = 0, 1
+    for a in entry_axes(entry):
+        idx = idx * sizes[a] + int(coord[a])
+        n *= sizes[a]
+    return idx, n
+
+
+def mesh_coord(mesh) -> dict[str, int]:
+    """This process's coordinate on a ``DeviceMesh`` (``{axis: index}``);
+    a geometry alone (a dict of sizes) has none and raises."""
+    if isinstance(mesh, dict) or not hasattr(mesh, "get_coordinate"):
+        raise TypeError(f"{type(mesh).__name__} has no process coordinate: "
+                        "executing a sharded spec needs a DeviceMesh "
+                        "(repro_torch.launch.mesh) and this process on it")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this process is not on the mesh")
+    return dict(zip(axis_sizes(mesh), (int(c) for c in coord)))
+
+
+def local_shard(x, spec: PartitionSpec, mesh, coord: dict | None = None):
+    """This process's block of ``x`` (the whole array: a tensor or a numpy
+    array) under ``spec``: a view where each split dim keeps its block.
+    ``coord`` defaults to the process's own on ``mesh``."""
+    coord = mesh_coord(mesh) if coord is None else coord
+    for dim, entry in enumerate(spec):
+        idx, n = block_of(entry, mesh, coord)
+        if n > 1:
+            size = x.shape[dim] // n
+            x = x[(slice(None),) * dim + (slice(idx * size,
+                                                (idx + 1) * size),)]
+    return x
+
+
+def local_copy(x, spec: PartitionSpec, mesh, coord: dict | None = None):
+    """:func:`local_shard` of a tensor in memory of its own (contiguous), so
+    nothing keeps the whole alive and updating it in place leaves ``x``
+    as it was."""
+    import torch
+    return local_shard(x, spec, mesh, coord).clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather_full(x, spec: PartitionSpec, mesh):
+    """The whole array from every process's block ``x`` under ``spec`` (no
+    gradient; collective over the axes ``spec`` names: each process of
+    them calls it, in the same order); ``x`` itself where nothing is
+    split."""
+    from repro_torch.launch.mesh import mesh_groups
+    from repro_torch.sharding.spmd import all_gather
+    sizes = axis_sizes(mesh)
+    for dim, entry in enumerate(spec):
+        axes = tuple(a for a in entry_axes(entry) if sizes[a] > 1)
+        if axes:
+            x = all_gather(x, *mesh_groups(mesh).group(axes), dim)
+    return x
+
+
+def shard_params(tree, axes_tree, mesh, rules: LogicalRules | None = None):
+    """The local block of every leaf of a tree of whole tensors, each
+    leaf's spec from its logical axes (``axes_tree``, the tree of
+    :func:`~repro_torch.models.layers.logical_axes`) and its shape: new
+    tensors (a replicated leaf too), so updating them in place leaves
+    ``tree`` as it was."""
+    from repro_torch.models.layers import tree_map
+    coord = mesh_coord(mesh)
+    return tree_map(
+        lambda t, ax: local_copy(
+            t, sharding_for_shape(tuple(t.shape), ax, mesh, rules), mesh,
+            coord), tree, axes_tree)
+
+
 def constraint(x, logical_axes: Sequence[str | None], mesh=None,
                rules: LogicalRules | None = None):
-    """The reference's ``with_sharding_constraint`` by logical axes: the
-    identity off-mesh and where the spec replicates ``x``; a spec that
-    would shard ``x`` raises (item 12)."""
+    """The reference's ``with_sharding_constraint`` by logical axes, on a
+    tensor every process holds whole: the identity off-mesh and where the
+    spec replicates ``x``; on a ``DeviceMesh`` that splits it, this
+    process's block (:func:`local_shard`).  A geometry without a process
+    coordinate raises."""
     if mesh is None:
         return x
     spec = sharding_for_shape(tuple(x.shape), logical_axes, mesh, rules)
-    if not is_replicated(spec, mesh):
-        raise NotImplementedError(f"constraint {spec} on "
-                                  f"{axis_sizes(mesh)}: {SHARDED_EXECUTION}")
-    return x
+    if is_replicated(spec, mesh):
+        return x
+    return local_shard(x, spec, mesh)

@@ -18,9 +18,10 @@ bfloat16 array (descr ``'<V2'``; numpy itself has no bfloat16, and the
 port does not import ml_dtypes), and the manifest records
 ``"bfloat16"``.  Restore reads that form, and the ``uint16`` files that
 earlier versions of the port wrote, to the same bits.  Restore places
-every leaf on one device with the template leaf's dtype: the data-parallel
-trainer's replicas each restore the whole state, so a checkpoint moves
-between meshes of any data size and the single-device trainer.
+every leaf on one device with the template leaf's dtype, whole or cut by
+``local`` to a mesh process's block: a mesh trainer saves whole leaves
+(gathered from its blocks), so a checkpoint moves between meshes of any
+layout, the single-device trainer and the reference.
 """
 from __future__ import annotations
 
@@ -169,10 +170,11 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template, step: int | None = None,
-                device=None) -> tuple[int, Any, dict]:
+                device=None, local=None) -> tuple[int, Any, dict]:
         """Restore into the structure of ``template``: each leaf takes the
         template leaf's dtype and goes to ``device`` (default: the CUDA
-        card; raises without one).  Returns (step, state, extra)."""
+        card; raises without one), first cut by ``local(template leaf,
+        whole leaf)`` where given.  Returns (step, state, extra)."""
         dev = resolve_device(device)
         step = self.latest_step() if step is None else step
         if step is None:
@@ -185,6 +187,8 @@ class CheckpointManager:
             if meta is None:
                 raise KeyError(f"checkpoint {d} missing leaf {key}")
             t = _from_host(np.load(d / meta["file"]), meta["dtype"])
+            if local is not None:
+                t = local(leaf, t)
             return t.to(device=dev, dtype=leaf.dtype)
 
         state = _map_with_paths(load, template)

@@ -12,19 +12,26 @@ asks for another device.
 **On a mesh** (a ``DeviceMesh`` of :mod:`repro_torch.launch.mesh`) the
 port is SPMD on ``torch.distributed``: one process a device, every process
 running the same code (NCCL on the card, gloo on the CPU), where the
-reference is one controller over the mesh's devices.  Data parallelism is
-what executes:
+reference is one controller over the mesh's devices.
 
-* :func:`make_train_step` and :class:`Trainer` take a mesh on which the
-  config's logical-axis rules (``registry.rules_for``) replicate every
-  parameter.  Each process takes its rows of the global batch, as the
-  reference's ``batch``-sharded ``device_put`` deals them, and the
-  gradients and the loss are all-reduced as a mean over the axes that
-  split the batch.  A mesh on which a parameter would be sharded
-  (a ``model`` axis over 1, or a config's ``("embed", "data")``
-  override), and a config that routes experts on a data size over 1 (the
-  reference routes the global batch: capacity and the aux loss span every
-  shard), raise ``NotImplementedError``: item 12 of ROADMAP's queue 1.
+* :func:`make_train_step` and :class:`Trainer` take any mesh on which the
+  config's rules (``registry.rules_for``) either replicate every parameter
+  (data parallel) or split them the way :mod:`repro_torch.sharding.spmd`
+  executes: tensor parallel on ``model`` and FSDP on ``data`` (a
+  config's ``("embed", "data")`` override) for the dense and SSM families.
+  Each process holds its blocks of the parameters and moments and takes
+  its rows of the global batch, as the reference's ``batch``-sharded
+  ``device_put`` deals them.  The loss and the gradient of every leaf are
+  averaged over the axes that split the batch: all-reduced over those that
+  do not split the leaf, while a leaf split over ``data`` comes out of the
+  backward already summed over it (its gather's reduce-scatter).  The
+  clip's norm sums each leaf's squares over the processes that split it.
+  What the slice does not execute raises ``NotImplementedError`` naming
+  item 12 of ROADMAP's queue 1 (``spmd.check_supported``): the
+  encoder-decoder, the VLM and MoE layers on a sharded mesh, heads the
+  ``model`` axis does not divide, and a config that routes experts on a
+  data size over 1 (the reference routes the global batch: capacity and
+  the aux loss span every shard).
 * :func:`make_manual_dp_train_step` is the reference's explicit DP step:
   per-process gradients, then the int8 error-feedback all-reduce
   (:func:`repro_torch.train.compression.compressed_psum`) leaf by leaf.
@@ -49,12 +56,12 @@ import torch.distributed as dist
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import param_specs, rules_for
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import backend_device, mesh_groups, mesh_ranks
+from repro_torch.launch.mesh import mesh_device, mesh_groups, mesh_ranks
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.model import build_forward, init_params
+from repro_torch.sharding import spmd
 from repro_torch.sharding.partition import (
-    SHARDED_EXECUTION, axis_sizes, is_replicated, sharding_for_shape,
-    spec_for,
+    P, axis_sizes, gather_full, local_copy, sharding_for_shape, spec_for,
 )
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.compression import compressed_psum
@@ -112,13 +119,15 @@ def _tensor(v, device) -> torch.Tensor:
 
 
 class DataParallel:
-    """A mesh's data-parallel geometry for one config, from this process.
+    """A mesh's data-parallel geometry for one config, from this process,
+    and the blocks of its parameters.
 
-    By default the config's rules decide: they must replicate every
-    parameter on ``mesh`` (else ``NotImplementedError``), an expert-routing
-    config must have a data size of 1, and each batch array splits over the
-    axes its ``batch`` spec names (``("pod", "data")`` as present) where
-    they divide it.  With ``batch_axes``, as the manual step's
+    By default the config's rules decide: they replicate every parameter
+    on ``mesh`` or split them as :mod:`repro_torch.sharding.spmd` executes
+    (``sharded``; else ``NotImplementedError``), an expert-routing config
+    must have a data size of 1, and each batch array splits over the axes
+    its ``batch`` spec names (``("pod", "data")`` as present) where they
+    divide it.  With ``batch_axes``, as the manual step's
     ``shard_map`` declares its batch, every array splits over those axes
     exactly and the rules are not consulted: the parameters are replicated
     whatever they say, and each process routes its own rows.  The
@@ -132,8 +141,9 @@ class DataParallel:
         self.rules = rules or rules_for(cfg)
         self.sizes = axis_sizes(mesh)
         self.batch_axes = None if batch_axes is None else tuple(batch_axes)
+        self.sharded = False
         if batch_axes is None:
-            self._check(cfg)
+            self.sharded = self._check(cfg)
         for a in self.batch_axes or ():
             if a not in self.sizes:
                 raise ValueError(f"no axis {a!r} in the mesh {self.sizes}")
@@ -141,6 +151,7 @@ class DataParallel:
             raise TypeError("the data-parallel step runs on a DeviceMesh "
                             "(repro_torch.launch.mesh), not on "
                             f"{type(mesh).__name__}")
+        self.mesh = mesh
         self.ranks = mesh_ranks(mesh)
         self.sub = mesh_groups(mesh)
         me = dist.get_rank()
@@ -149,15 +160,16 @@ class DataParallel:
         self.coord = (dict(zip(self.sizes, np.unravel_index(
             self.ranks.index(me), tuple(self.sizes.values()))))
             if self.member else None)
-        self.device = backend_device()
+        self.device = mesh_device(mesh)
+        #: each parameter leaf's spec and the axes (over 1) that split it,
+        #: in ``tree_leaves`` order
+        self.specs = [m.spec for m in tree_leaves(
+            param_specs(cfg, self.sizes, self.rules))]
+        self.splits = [tuple(a for a in sp.mesh_axes() if self.sizes[a] > 1)
+                       for sp in self.specs]
 
-    def _check(self, cfg: ArchConfig) -> None:
-        for leaf in tree_leaves(param_specs(cfg, self.sizes, self.rules)):
-            if not is_replicated(leaf.spec, self.sizes):
-                raise NotImplementedError(
-                    f"{cfg.name} on {self.sizes}: a parameter of "
-                    f"{tuple(leaf.meta.shape)} would be sharded {leaf.spec}; "
-                    f"{SHARDED_EXECUTION}")
+    def _check(self, cfg: ArchConfig) -> bool:
+        sharded = spmd.check_supported(cfg, self.sizes, self.rules)
         batch = spec_for(("batch",), self.sizes, self.rules)
         n_data = math.prod(self.sizes[a] for a in _entry_axes(batch))
         if cfg.n_experts and n_data > 1:
@@ -165,8 +177,9 @@ class DataParallel:
                 f"{cfg.name} routes experts: on a data size of {n_data} the "
                 "reference routes the global batch (capacity and the aux "
                 "loss span every shard), which per-shard routing is not; "
-                "expert routing across a data mesh waits for the port's "
-                "sharding substrate (ROADMAP, queue 1, item 12)")
+                "expert routing across a data mesh waits for the rest of "
+                "the sharding substrate (ROADMAP, queue 1, item 12)")
+        return sharded
 
     def mesh_group(self):
         """The process group over the whole mesh (members only)."""
@@ -205,30 +218,80 @@ class DataParallel:
         return out, split or ()
 
     def mean(self, loss, grads, axes: tuple[str, ...], err=None):
-        """The loss and every gradient leaf all-reduced as a mean over
-        ``axes``, leaf by leaf in the reference's leaf order.  With ``err``
-        (the manual step's error-feedback tree) each leaf goes through
-        :func:`~repro_torch.train.compression.compressed_psum` instead, and
-        ``err`` and the gradients are updated in place."""
-        if not axes:
+        """The loss and every gradient leaf as a mean over ``axes`` (the
+        axes that split the batch), leaf by leaf in the reference's leaf
+        order: all-reduced over the axes of ``axes`` that do not split the
+        leaf, then divided by the processes of ``axes`` and of the data
+        axes that split the leaf (whose sum its backward made).  With
+        ``err`` (the manual step's error-feedback tree) each leaf goes
+        through :func:`~repro_torch.train.compression.compressed_psum`
+        instead, and ``err`` and the gradients are updated in place."""
+        if not axes and not self.sharded:
             return loss, grads
-        pg, members = self.sub.group(axes)
-        n = len(members)
         if err is not None:
+            pg = self.sub.group(axes)[0]
             for g, e in zip(tree_leaves(grads), tree_leaves(err)):
                 red, _ = compressed_psum(g, pg, e)
                 g.copy_(red)
                 del red
         else:
             red = {}
-            for g in tree_leaves(grads):
+            for g, split in zip(tree_leaves(grads), self.splits):
+                over = tuple(a for a in axes if a not in split)
+                n = math.prod(self.sizes[a] for a in set(axes) | {
+                    a for a in split if a != "model"})
                 t = g if g.is_contiguous() else g.contiguous()
-                dist.all_reduce(t, dist.ReduceOp.SUM, group=pg)
+                if over:
+                    dist.all_reduce(t, dist.ReduceOp.SUM,
+                                    group=self.sub.group(over)[0])
                 red[id(g)] = t.div_(n)
             grads = tree_map(lambda g: red[id(g)], grads)
+        if not axes:
+            return loss, grads
+        pg, members = self.sub.group(axes)
         loss = loss.clone()
         dist.all_reduce(loss, dist.ReduceOp.SUM, group=pg)
-        return loss / n, grads
+        return loss / len(members), grads
+
+    def norm_sq(self, sq: list) -> torch.Tensor:
+        """The global sum of the leaves' sums of squares ``sq`` (one a
+        leaf, ``tree_leaves`` order): summed by the set of axes that split
+        the leaves, each set all-reduced over its processes (a replicated
+        leaf counted once)."""
+        by: dict[tuple, list] = {}
+        for x, split in zip(sq, self.splits):
+            by.setdefault(split, []).append(x)
+        total = None
+        for split, xs in by.items():
+            t = torch.stack(xs).sum()
+            if split:
+                dist.all_reduce(t, dist.ReduceOp.SUM,
+                                group=self.sub.group(split)[0])
+            total = t if total is None else total + t
+        return total
+
+    def _state_specs(self, state: dict) -> dict:
+        """``{id(leaf): spec}`` of a trainer state ``{"params", "opt"}``:
+        the moments split as their parameters, the step replicated."""
+        out = {}
+        for tree in (state["params"], state["opt"]["mu"],
+                     state["opt"]["nu"]):
+            out.update((id(t), sp) for t, sp in zip(tree_leaves(tree),
+                                                    self.specs))
+        return out
+
+    def gather_state(self, state: dict) -> dict:
+        """Every leaf of a trainer state whole (collective over the mesh)."""
+        specs = self._state_specs(state)
+        return tree_map(lambda t: gather_full(t, specs.get(id(t), P()),
+                                                   self.mesh), state)
+
+    def local_state(self, template: dict):
+        """``local(leaf, whole)`` for ``CheckpointManager.restore``: this
+        process's block of a whole leaf of the state ``template``."""
+        specs = self._state_specs(template)
+        return lambda leaf, whole: local_copy(
+            whole, specs.get(id(leaf), P()), self.mesh, self.coord)
 
 
 def _entry_axes(spec) -> tuple[str, ...]:
@@ -254,16 +317,19 @@ def make_train_step(cfg: ArchConfig, mesh=None,
     The batch's arrays (numpy or tensors) go to ``device`` (default: the
     CUDA card; raises without one); params and opt_state must live there
     and are updated in place.  On a ``mesh`` (see the module docstring) the
-    batch is the global one, the device is the process group's, and the
+    batch is the global one, the device is the mesh's, params and
+    opt_state are this process's blocks (``init_params(mesh=)``), and the
     step's ``data_parallel`` attribute holds the mesh's geometry."""
     opt_cfg = opt_cfg or AdamWConfig()
     options = options or TrainOptions()
     dp = DataParallel(cfg, mesh) if mesh is not None else None
     dev = _mesh_device(dp, device) if dp else resolve_device(device)
     loss_fn_raw = build_forward(cfg, "loss")
+    sharded = dp is not None and dp.sharded
 
     def loss_fn(p, b):
-        return loss_fn_raw(p, b, cfg)
+        return loss_fn_raw(p, b, cfg, mesh) if sharded else \
+            loss_fn_raw(p, b, cfg)
 
     def step(params, opt_state, batch):
         if dp is None:
@@ -274,8 +340,9 @@ def make_train_step(cfg: ArchConfig, mesh=None,
                                           options.num_microbatches)
         if dp is not None:
             loss, grads = dp.mean(loss, grads, axes)
-        params, opt_state, metrics = adamw_update(grads, params, opt_state,
-                                                  opt_cfg)
+        params, opt_state, metrics = adamw_update(
+            grads, params, opt_state, opt_cfg,
+            norm_reduce=dp.norm_sq if sharded else None)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
@@ -338,12 +405,14 @@ def _barrier(group=None) -> None:
 class Trainer:
     """The reference's trainer, on one device or SPMD on a mesh.
 
-    On a mesh every process of the world builds the trainer, runs the same
-    calls and keeps a replica of the state; the mesh's first process writes
-    the checkpoints (so ``ckpt_dir`` must be one directory all of them
-    see), in the single-device trainer's format: either trainer restores
-    the other's.  A restore waits at a barrier of the mesh for the
-    writer's last save.
+    On a mesh every process of the world builds the trainer and runs the
+    same calls; each keeps its blocks of the state (a replica where the
+    rules replicate).  The mesh's first process writes the checkpoints
+    (so ``ckpt_dir`` must be one directory all of them see), whole leaves
+    gathered from the blocks, in the single-device trainer's format: a
+    checkpoint moves between meshes of any layout, the single-device
+    trainer and the reference.  A restore waits at a barrier of the mesh
+    for the writer's last save and cuts each leaf to the process's block.
 
     :meth:`reshard` is collective over the world's processes.  After it,
     the processes of the new mesh hold the state; for ``None``, the
@@ -382,7 +451,7 @@ class Trainer:
                                     else getattr(self, "device", None))
         self.step_fn = make_train_step(self.cfg, mesh, self.opt_cfg,
                                        self.options, device)
-        dp = self.step_fn.data_parallel
+        dp = self._dp = self.step_fn.data_parallel
         if dp is None:
             self.device = device
             self.active = not controller_only or dist.get_rank() == 0
@@ -398,15 +467,23 @@ class Trainer:
         self.params = None          # free the old state before the new one
         self.opt_state = None
         if self.active:
-            self.params = init_params(self.cfg, seed, self.device)
+            mesh = self.mesh if self._sharded() else None
+            self.params = init_params(self.cfg, seed, self.device, mesh=mesh)
             self.opt_state = adamw_init(self.params)
+
+    def _sharded(self) -> bool:
+        return self._dp is not None and self._dp.sharded
 
     # -- checkpoint/restart ---------------------------------------------------
 
     def save(self, async_: bool = True):
+        """Checkpoint the state (collective on a sharded mesh: every
+        process of the mesh gathers; the first writes)."""
+        state = {"params": self.params, "opt": self.opt_state}
+        if self._sharded() and self.active:
+            state = self._dp.gather_state(state)
         if not self._writer:
             return
-        state = {"params": self.params, "opt": self.opt_state}
         extra = {"step": self.step}
         if async_:
             self.ckpt.save_async(self.step, state, extra)
@@ -422,8 +499,9 @@ class Trainer:
         if self.ckpt.latest_step() is None:
             return False
         template = {"params": self.params, "opt": self.opt_state}
+        local = self._dp.local_state(template) if self._sharded() else None
         got_step, state, extra = self.ckpt.restore(template, step,
-                                                   self.device)
+                                                   self.device, local=local)
         self.params = state["params"]
         self.opt_state = state["opt"]
         self.step = extra.get("step", got_step)

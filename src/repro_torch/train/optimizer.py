@@ -10,6 +10,12 @@ parameters a second copy of the optimizer state would not fit beside the
 first.  Large leaves are updated in slices of ``CHUNK`` elements, so the
 f32 temporaries of one leaf stay small; the arithmetic is elementwise, so
 the slices change nothing in the values.
+
+On a mesh each process holds its blocks of the parameters, gradients and
+moments (the moments split as their parameters: :func:`abstract_opt_state`)
+and updates them; only the clip's global norm needs the other processes:
+:func:`global_norm` with ``reduce`` sums each leaf's squares over the
+processes that split it, and counts a replicated leaf once.
 """
 from __future__ import annotations
 
@@ -45,6 +51,21 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def abstract_opt_state(param_specs) -> dict:
+    """The optimizer state of parameters given as MetaSpecs
+    (``registry.param_specs``): f32 moments split as their parameters, the
+    step count replicated."""
+    from repro_torch.configs.registry import MetaSpec, _meta
+    from repro_torch.sharding.partition import PartitionSpec
+
+    def like(m):
+        return MetaSpec(_meta(tuple(m.meta.shape), torch.float32), m.spec)
+
+    return {"mu": tree_map(like, param_specs),
+            "nu": tree_map(like, param_specs),
+            "step": MetaSpec(_meta((), torch.int32), PartitionSpec())}
+
+
 def lr_schedule(step, cfg: AdamWConfig) -> torch.Tensor:
     """Linear warmup, then cosine decay; an f32 scalar tensor."""
     s = torch.as_tensor(step).to(torch.float32)
@@ -60,20 +81,31 @@ def _slices(t: torch.Tensor):
         yield flat[i:i + CHUNK]
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
+def _sumsq(g: torch.Tensor) -> torch.Tensor:
+    return sum((x.float() ** 2).sum() for x in _slices(g.contiguous()))
+
+
+def global_norm(tree, reduce=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32.  ``reduce``, on a
+    mesh, takes the leaves' local sums of squares (in ``tree_leaves``
+    order) and returns the global sum (``DataParallel.norm_sq``)."""
+    leaves = tree_leaves(tree)
+    if reduce is not None:
+        return torch.sqrt(reduce([_sumsq(g) for g in leaves]))
     total = None
-    for g in tree_leaves(tree):
-        sq = sum((x.float() ** 2).sum() for x in _slices(g.contiguous()))
+    for g in leaves:
+        sq = _sumsq(g)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def adamw_update(grads, params, opt_state: dict, cfg: AdamWConfig):
-    """One AdamW step, in place; returns (params, opt_state, metrics)."""
+def adamw_update(grads, params, opt_state: dict, cfg: AdamWConfig,
+                 norm_reduce=None):
+    """One AdamW step, in place; returns (params, opt_state, metrics).
+    ``norm_reduce``: :func:`global_norm`'s ``reduce`` on a mesh."""
     step = opt_state["step"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads, norm_reduce)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12), max=1.0)
     lr = lr_schedule(step, cfg)
     b1, b2 = cfg.b1, cfg.b2

@@ -739,9 +739,9 @@ cases = {"deepseek_dp4": (smoke(get("deepseek-moe-16b")), make_dp_mesh(4)),
          "mixtral_1x4": (mixtral, make_test_mesh(1, 4))}
 for name, (cfg, mesh) in cases.items():
     try:
-        Trainer(cfg, mesh, global_batch=BATCH, seq_len=SEQ,
-                ckpt_dir=f"{ROOT}/{name}")
-        RESULT[name] = None
+        t = Trainer(cfg, mesh, global_batch=BATCH, seq_len=SEQ,
+                    ckpt_dir=f"{ROOT}/{name}")
+        RESULT[name] = [m["loss"] for m in t.run(1)]
     except NotImplementedError as e:
         RESULT[name] = str(e)
 try:
@@ -754,21 +754,25 @@ except RuntimeError as e:
 
 def test_what_still_raises_on_four_processes(pool, tmp_path):
     """DeepSeek smoke on dp 4 (its ``("embed", "data")`` override shards
-    the embed dims), Mixtral without its overrides on dp 4 (every weight
-    replicated, but it routes experts on a data size of 4), Llama on a
-    2 × 2 ``data × model`` mesh and Mixtral on a 1 × 4 mesh (the model
-    axis shards its expert dims) raise ``NotImplementedError`` naming item
-    12; a wrapper on a real tensor with no bound mesh raises."""
+    the embed dims of its MoE layers), Mixtral without its overrides on dp
+    4 (every weight replicated, but it routes experts on a data size of 4)
+    and Mixtral on a 1 × 4 mesh (the model axis shards its expert dims)
+    raise ``NotImplementedError`` naming item 12; Llama on a 2 × 2 ``data ×
+    model`` mesh trains a step since the tensor-parallel slice (the same
+    loss on every process; ``tests/test_torch_tp.py`` holds it to the
+    reference); a wrapper on a real tensor with no bound mesh raises."""
     outs = pool.run(f"ROOT = {str(tmp_path)!r}\nSEQ, BATCH = {SEQ}, "
                     f"{BATCH}\n" + POOL_HELPERS + RAISE_TASK)
     for out in outs:
-        for name in ("deepseek_dp4", "mixtral_dp4", "llama_2x2",
-                     "mixtral_1x4"):
-            assert out[name] and "item 12" in out[name], (name, out[name])
+        for name in ("deepseek_dp4", "mixtral_dp4", "mixtral_1x4"):
+            assert isinstance(out[name], str) and "item 12" in out[name], \
+                (name, out[name])
         assert "sharded" in out["deepseek_dp4"]
+        assert "MoE" in out["deepseek_dp4"]
         assert "routes experts" in out["mixtral_dp4"]
-        assert "sharded" in out["llama_2x2"]
-        assert "sharded" in out["mixtral_1x4"]
+        assert "sharded" in out["mixtral_1x4"] and "MoE" in out["mixtral_1x4"]
+        assert out["llama_2x2"] == outs[0]["llama_2x2"]
+        assert len(out["llama_2x2"]) == 1 and out["llama_2x2"][0] > 0
         assert "no mesh bound" in out["unbound"]
 
 

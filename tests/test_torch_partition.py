@@ -144,7 +144,10 @@ def test_batch_specs_equal_the_reference(shape):
 def test_placements_replication_and_constraint():
     """Specs as DTensor placements, one a mesh dim; a spec is replicated
     where each axis it names has size 1; ``constraint`` is the identity
-    there and raises on a sharded spec (item 12)."""
+    there, and on a sharded spec needs a process coordinate (a geometry
+    alone raises; ``tests/test_torch_tp.py`` executes it on four
+    processes); ``local_shard`` cuts the block of a coordinate, the first
+    axis of an entry major."""
     from torch.distributed.tensor import Replicate, Shard
     sizes = {"pod": 2, "data": 2, "model": 2}
     spec = PP.P(("pod", "data"), None, "model")
@@ -157,8 +160,14 @@ def test_placements_replication_and_constraint():
     x = torch.ones(8, 4)
     assert PP.constraint(x, ("batch", "embed")) is x
     assert PP.constraint(x, ("embed", "ffn"), {"data": 4}) is x
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="no process coordinate"):
         PP.constraint(x, ("batch", "embed"), {"data": 4})
+    assert torch.equal(PP.local_shard(x, PP.P("data"), {"data": 4},
+                                      {"data": 1}), x[2:4])
+    y = torch.arange(8 * 3 * 4).reshape(8, 3, 4)
+    assert torch.equal(PP.local_shard(y, spec, sizes,
+                                      {"pod": 1, "data": 0, "model": 1}),
+                       y[4:6, :, 2:4])
     with pytest.raises(TypeError, match="not a mesh"):
         PP.axis_sizes(object())
     # the rules replicate every Llama parameter on a data mesh and shard

@@ -499,11 +499,16 @@ def test_trainer_microbatching_equivalence(tmp_path):
 
 
 def test_mesh_paths_wait_for_the_mesh_slice(tmp_path):
-    """What still raises: a mesh that would shard a parameter (a ``model``
-    axis over 1; a config's ``("embed", "data")`` override on a data size
-    over 1), a config that routes experts on a data size over 1, and a
-    mesh given as a plain geometry, not a DeviceMesh.  What runs since the
-    data-parallel slice: ``grad_compression="int8"`` is ignored by
+    """What still raises ``NotImplementedError`` naming item 12: the
+    config and mesh pairs the sharded slice does not execute (Mixtral's
+    experts on a 1 × 4 mesh, DeepSeek's routing and override on dp 4,
+    Whisper on a ``model`` axis of 2, 4 heads on a ``model`` axis of 8:
+    the reference's ``"batch"`` or ``"cp"`` mode), and a config that
+    routes experts on a data size over 1; a mesh given as a plain
+    geometry, not a DeviceMesh, raises ``TypeError`` (Llama on 2 × 2 gets
+    past the sharding check since the tensor-parallel slice:
+    ``tests/test_torch_tp.py`` runs it on four processes).  What runs since
+    the data-parallel slice: ``grad_compression="int8"`` is ignored by
     ``make_train_step``, as the reference ignores it (the same loss bits),
     and on a one-process gloo group the manual int8 DP step trains and
     ``Trainer.reshard`` moves a trainer between a mesh and no mesh."""
@@ -513,11 +518,16 @@ def test_mesh_paths_wait_for_the_mesh_slice(tmp_path):
     from repro_torch.train import loop
     from repro_torch.train.compression import init_error_state
     cfg = smoke(get("llama3.2-3b"))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(cfg, mesh={"data": 2, "model": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_train_step(smoke(get("deepseek-moe-16b")), {"data": 4},
-                        device="cpu")
+    for arch, sizes, what in (
+            ("deepseek-moe-16b", {"data": 4}, "MoE"),
+            ("mixtral-8x22b", {"data": 1, "model": 4}, "MoE"),
+            ("whisper-large-v3", {"data": 1, "model": 2}, "encoder-decoder"),
+            ("llama3.2-3b", {"data": 1, "model": 8}, "'cp' attention")):
+        with pytest.raises(NotImplementedError, match="item 12") as e:
+            make_train_step(smoke(get(arch)), sizes, device="cpu")
+        assert what in str(e.value), (arch, str(e.value))
     moe = dataclasses.replace(smoke(get("mixtral-8x22b")), rules_overrides=())
     with pytest.raises(NotImplementedError, match="routes experts"):
         Trainer(moe, {"data": 2}, ckpt_dir=tmp_path, device="cpu")

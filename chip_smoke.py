@@ -105,7 +105,16 @@ paths on the card, checking that each went through its kernels:
   tokens, a train step), Llama 3.2 3B and Mamba2 2.7B served at full width
   against one device (Mamba2 also cut to 8 layers in f32, through a prefill
   and decode steps), one full-width Llama train step, and a process's
-  kernel shapes timed.
+  kernel shapes timed;
+- slice 14: the rest of sharded execution on the same two processes: the
+  f32 smoke Whisper, VLM, DeepSeek-MoE, Mixtral and Jamba and a 3-head
+  Llama variant in the ``"batch"`` and ``"cp"`` attention modes against one
+  device; DeepSeek-MoE 16B (32 experts a process), Whisper large-v3 (10
+  heads a process) and the VLM at 2 of its 20 units served at full width
+  against one device, with their prefill/decode consistency on the mesh;
+  one DeepSeek-MoE train step at its 9-layer cut against one device; and
+  ``flash_fwd``/``flash_bwd`` with a query offset at a ``cp`` shape, held
+  to their plain versions and timed beside SDPA with the equivalent mask.
 
 Then it times every kernel against its plain version, its bound and, where
 one PyTorch call computes the same function, that call; for the two
@@ -3399,6 +3408,52 @@ TP_FLASH = dict(b=4, s=2048, h=12, g=4, d=128)
 TP_SSD = dict(b=4, c=8, q=256, g=1, r=40, p=64, n=128)
 #: seconds phase_tp waits for its processes
 TP_TIMEOUT = 900
+#: slice 14, (a): the f32 smoke configs of the families PR 23 left, against
+#: one device at the levels above, and a 3-head variant of the Llama smoke
+#: config (48 flat q columns, 1.5 heads a process) in the two modes the
+#: heads do not divide: batch 4 runs "batch" (each process 2 rows, every
+#: head), batch 1 runs "cp" (each process 512 query positions against every
+#: key: the flash kernels' q_offset 0 and 512), at 1024-token prompts
+TP_SMOKE_FAMILIES = ("whisper-large-v3", "llama-3.2-vision-90b",
+                     "deepseek-moe-16b", "mixtral-8x22b", "jamba-v0.1-52b")
+TP_MODE_BATCH = {"batch": 4, "cp": 1}
+TP_MODE_PROMPT = 1024
+#: (b): full width, bf16, SERVE_BATCH rows, SERVE_NEW new tokens on the
+#: mesh: (prompt, the consistency's (length, decode steps), layers kept or
+#: None).  Whisper's 416 + 32 are its 448 decoder positions.  The VLM's 20
+#: units of five layers are 179 GB in bf16; the one-device prefill every
+#: check is held to runs on the same card after the two processes have
+#: freed theirs, so 2 units (10 of 100 layers: 8 self-attention and 2
+#: cross-attention layers, 9.6 B parameters, 19 GB) keep the phase short
+#: beside PR 19's 6 units on one device.
+TP_FAMILY_CELLS = {"deepseek-moe-16b": (2048, (2048, 8), None),
+                   "whisper-large-v3": (416, (416, 8), None),
+                   VLM: (2048, (2048, 8), 10)}
+#: their bf16 prefill logits against one device's, as a share of the
+#: largest: 2^-4 for Whisper and the VLM (the serve level of bf16 logits).
+#: DeepSeek-MoE's routing takes its top 6 of 64 experts from a bf16 router
+#: product: the mesh's sums in another order move a layer's input by bf16
+#: rounding, which flips near-tied picks and which tokens an over-full
+#: expert drops, and 28 layers amplify the flips as they amplify the
+#: reference's own prefill-against-decode drift (0.135 of max|logits| at d
+#: 128; the card's first run of this check: 0.224).  So its whole model is
+#: held to twice that drift, as its consistency is, and its sharded MoE
+#: layers in f32 (TP_FAMILY_F32_CUT), where no pick flips, to 1e-4
+TP_FAMILY_LOGIT_RTOL = {"deepseek-moe-16b": 2 * REFERENCE_MOE_BF16_DRIFT,
+                        "whisper-large-v3": 2.0 ** -4, VLM: 2.0 ** -4}
+#: full width in f32, cut in depth, the mesh against one device (layers
+#: kept, prefill length, decode steps), at capacity factor n_experts /
+#: top_k (nothing drops), each step's logits within TP_LOGIT_RTOL
+TP_FAMILY_F32_CUT = {"deepseek-moe-16b": (4, 1024, 4)}
+#: (c): flash_fwd and flash_bwd with a query offset at a "cp" shape: Llama
+#: 3.2 3B's heads, the q rows 1024-2047 of a 2048-token sequence against all
+#: 2048 keys, causal; and a process's flash_fwd at model 2 of DeepSeek-MoE
+#: 16B's prefill (8 of 16 heads, causal) and Whisper large-v3's encoder (10
+#: of 20 heads, 1500 frames, unmasked): (b, s, t, h, g, d, causal, q_offset)
+TP_CP_FLASH = (4, 1024, 2048, 24, 8, 128, True, 1024)
+TP_FAMILY_FLASH = {"deepseek-moe-16b": (4, 2048, 2048, 8, 8, 128, True, 0),
+                   "whisper-large-v3": (4, 1500, 1500, 10, 10, 64, False,
+                                        0)}
 
 
 class _TPCheck(AssertionError):
@@ -3441,9 +3496,14 @@ def _tp_block(x, axes, mesh, cfg):
                                              rules_for(cfg)), mesh)
 
 
-def _tp_smoke(arch: str, mesh, dev) -> dict:
-    """An f32 smoke config on the mesh against one device on the card:
-    prefill logits, 8 greedy tokens, one train step's loss and gradients."""
+def _tp_smoke(arch: str, mesh, dev, cfg=None, rows: int = TP_SMOKE_BATCH,
+              plen: int = 0) -> dict:
+    """An f32 smoke config (``cfg``, else ``arch``'s) on the mesh against one
+    device on the card: prefill logits (random vision or audio inputs, where
+    the config takes them), 8 greedy tokens, one train step's loss and
+    gradients, at ``rows`` rows of ``plen`` tokens (``SMOKE_PROMPTS``' by
+    default).  ``mesh_launches``: the kernel launches of the mesh's calls
+    alone."""
     import repro_torch.train.loop as loop_mod
     from repro_torch.configs import get, smoke
     from repro_torch.configs.registry import rules_for
@@ -3457,16 +3517,28 @@ def _tp_smoke(arch: str, mesh, dev) -> dict:
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.optimizer import adamw_init
 
-    cfg = smoke(get(arch))
-    plen = SMOKE_PROMPTS[arch]
+    cfg = smoke(get(arch)) if cfg is None else cfg
+    plen = plen or SMOKE_PROMPTS[arch]
     whole = init_params(cfg, 0, dev)
     params = shard_params(whole, logical_axes_tree(cfg), mesh, rules_for(cfg))
-    prompts = serve_prompts(cfg, TP_SMOKE_BATCH, plen)
+    prompts = serve_prompts(cfg, rows, plen)
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    batch = model_batch(cfg, toks, dev)
     prefill = build_forward(cfg, "prefill")
+    on_mesh: dict = {}
+
+    def counted(fn):
+        before = read_counts()
+        out = fn()
+        for k, n in read_counts().items():
+            on_mesh[k] = on_mesh.get(k, 0) + n - before[k]
+        return out
+
     with torch.inference_mode():
-        got = prefill(params, {"tokens": toks}, cfg, mesh)[0]
-        want = _tp_block(prefill(whole, {"tokens": toks}, cfg)[0],
+        local = {k: _tp_block(v, ("batch",) + (None,) * (v.dim() - 1), mesh,
+                              cfg) for k, v in batch.items()}
+        got = counted(lambda: prefill(params, local, cfg, mesh)[0])
+        want = _tp_block(prefill(whole, batch, cfg)[0],
                          ("batch", "vocab"), mesh, cfg)
     err = float((got - want).abs().max())
     top = float(want.abs().max())
@@ -3474,13 +3546,14 @@ def _tp_smoke(arch: str, mesh, dev) -> dict:
                 f"logits {err} apart, largest {top}")
     logit_err = err / top
     n = plen + TP_SMOKE_NEW
-    t_mesh = ServeEngine(cfg, params, mesh, max_len=n).generate(
-        prompts, TP_SMOKE_NEW).tokens
+    t_mesh = counted(lambda: ServeEngine(cfg, params, mesh, max_len=n)
+                     .generate(prompts, TP_SMOKE_NEW).tokens)
     t_one = ServeEngine(cfg, whole, device=dev, max_len=n).generate(
         prompts, TP_SMOKE_NEW).tokens
     _tp_require((t_mesh == t_one).all(), f"tp smoke {arch}: tokens "
                 f"{t_mesh.tolist()} against one device's {t_one.tolist()}")
-    batch = TokenDataset(cfg.vocab, plen, TP_SMOKE_BATCH, seed=3).batch_at(0)
+    ds = TokenDataset(cfg.vocab, plen, rows, seed=3)
+    batch = {**ds.batch_at(0), **ds.extras(cfg)}
     real, seen = loop_mod.adamw_update, []
 
     def spy(grads, *a, **k):
@@ -3490,7 +3563,8 @@ def _tp_smoke(arch: str, mesh, dev) -> dict:
     loop_mod.adamw_update = spy
     try:
         step = make_train_step(cfg, mesh)
-        _, _, m_mesh = step(params, adamw_init(params), batch)
+        _, _, m_mesh = counted(lambda: step(params, adamw_init(params),
+                                            batch))
         _, _, m_one = make_train_step(cfg, device=dev)(
             whole, adamw_init(whole), batch)
     finally:
@@ -3508,6 +3582,7 @@ def _tp_smoke(arch: str, mesh, dev) -> dict:
                     f"leaf {i} {e} apart, largest {top}")
         worst = max(worst, e / top if top else 0.0)
     return {"logit_err": logit_err, "tokens_equal": True, "losses": loss,
+            "mesh_launches": {k: n for k, n in on_mesh.items() if n},
             "grad_norms": (float(m_mesh["grad_norm"]),
                            float(m_one["grad_norm"])), "worst_grad": worst}
 
@@ -3707,8 +3782,9 @@ def _tp_train(mesh, dev, rank: int) -> dict:
 
 def _tp_gloo(dev, rank: int) -> dict:
     """The collectives of the sharded model on CUDA tensors over gloo: the
-    sum and max all-reduce, the all-gather and the reduce-scatter, exact on
-    small integers in bf16 and f32 (no upcast); and the ms of a 64 MiB sum
+    sum and max all-reduce, the all-gather, the reduce-scatter and the
+    all-to-all (attention's "batch" and "cp" modes), exact on small
+    integers in bf16 and f32 (no upcast); and the ms of a 64 MiB sum
     all-reduce of each (the mean of 3)."""
     import torch.distributed as dist
     out = {}
@@ -3722,14 +3798,23 @@ def _tp_gloo(dev, rank: int) -> dict:
         dist.all_gather_into_tensor(g, x)
         r = x.new_empty((2, 5))
         dist.reduce_scatter_tensor(r, x)
+        # all-to-all: block k of each process to process k
+        a = (torch.arange(2 * w, device=dev)[:, None] + 100 * rank).to(dt) \
+            .expand(2 * w, 5).contiguous()
+        a2 = torch.empty_like(a)
+        dist.all_to_all_single(a2, a)
+        want_a = (torch.arange(2 * rank, 2 * rank + 2, device=dev)[None]
+                  + 100 * torch.arange(w, device=dev)[:, None]).reshape(-1)
         tot = w * (w + 1) // 2
         each = torch.arange(1, w + 1, device=dev).repeat_interleave(2 * w)
-        _tp_require(all(t.dtype == dt for t in (s, m, g, r))
+        _tp_require(all(t.dtype == dt for t in (s, m, g, r, a2))
                     and bool((s == tot).all()) and bool((m == w).all())
                     and bool((g == each[:, None].to(dt)).all())
-                    and bool((r == tot).all()),
+                    and bool((r == tot).all())
+                    and bool((a2 == want_a[:, None].to(dt)).all()),
                     f"gloo's collectives of a {dt} CUDA tensor gave sum {s}, "
-                    f"max {m}, all-gather {g}, reduce-scatter {r}")
+                    f"max {m}, all-gather {g}, reduce-scatter {r}, "
+                    f"all-to-all {a2}")
         big = torch.ones(64 * 2 ** 20 // x.element_size(), device=dev,
                          dtype=dt)
         dist.all_reduce(big)
@@ -3744,6 +3829,243 @@ def _tp_gloo(dev, rank: int) -> dict:
                                                     - t0) / 3
         del big
     return out
+
+
+def _tp_modes(mesh, dev) -> dict:
+    """(a) of slice 14's modes: the 3-head Llama smoke variant at batch 4
+    ("batch") and 1 ("cp") against one device (``_tp_smoke``), with the
+    mode each ran in and its flash calls' (q rows, heads, q_offset)."""
+    import dataclasses
+    from repro_torch.configs import get, smoke
+    from repro_torch.models import attention as A
+    from repro_torch.sharding import spmd
+
+    base = smoke(get("llama3.2-3b"))
+    cfg = dataclasses.replace(base, n_heads=3, n_kv_heads=1,
+                              name=base.name + "-3h")
+    ctx = spmd.context(mesh, cfg)
+    flash, out = A.flash_attention, {}
+    for mode, rows in TP_MODE_BATCH.items():
+        calls: list = []
+
+        def spy(q, k, v, **kw):
+            calls.append((q.shape[1], q.shape[2], kw.get("q_offset", 0)))
+            return flash(q, k, v, **kw)
+
+        ran = A._mode(ctx, cfg.n_heads, rows)
+        _tp_require(ran == mode, f"tp modes: {rows} rows ran {ran!r}, not "
+                    f"{mode!r}")
+        A.flash_attention = spy
+        try:
+            reset_counts()
+            row = _tp_smoke("llama3.2-3b", mesh, dev, cfg, rows,
+                            TP_MODE_PROMPT)
+        finally:
+            A.flash_attention = flash
+        row["flash_calls"] = sorted(set(calls))
+        out[mode] = row
+    return out
+
+
+def _tp_init(cfg, dev, mesh, rank: int):
+    """This process's blocks of ``cfg``'s weights (seed 0), the processes
+    drawing in turn: each leaf is drawn whole in f32 before it is cut, and
+    two full-size draws at once would not fit the one card."""
+    import torch.distributed as dist
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import spmd
+    spmd.context(mesh, cfg)     # collective the first time: every process
+    params = None
+    for r in range(dist.get_world_size()):
+        if r == rank:
+            params = init_params(cfg, 0, dev, mesh=mesh)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def _tp_family(arch: str, mesh, dev, rank: int) -> dict:
+    """(b) of slice 14: a full-width bf16 config served on the mesh (a
+    generate: its launches, heads and expert-drop shares; the prefill/decode
+    consistency on the mesh), then, on process 0 alone once both have freed
+    their blocks, the same prefill on one device, which the mesh's whole
+    logits (both vocab blocks) are held to."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.models.model import build_forward, init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import spmd
+
+    cfg = get(arch)
+    plen, (clen, steps), depth = TP_FAMILY_CELLS[arch]
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    prompts = serve_prompts(cfg, SERVE_BATCH, plen)
+    toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    batch = model_batch(cfg, toks, dev)
+    prefill = build_forward(cfg, "prefill")
+    decode = build_forward(cfg, "decode")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = _tp_init(cfg, dev, mesh, rank)
+    ctx = spmd.context(mesh, cfg)
+    row: dict = {"layers": cfg.n_layers}
+    with torch.inference_mode():
+        got = ctx.all_gather(prefill(params, batch, cfg, mesh)[0], 1)
+    got = got.float().cpu()
+    engine = ServeEngine(cfg, params, mesh, max_len=plen + SERVE_NEW)
+    shapes, routes = [], []
+    reset_counts()
+    with _tp_kernel_shapes(shapes), moe_routes(routes):
+        res = engine.generate(prompts, SERVE_NEW)
+    row["launches"] = read_counts()
+    row["heads"] = sorted(set(tuple(x[1:]) for x in shapes
+                              if x[0] == "flash_fwd"))
+    row["kernel_calls"] = sum(1 for x in shapes if x[0] == "flash_fwd")
+    if routes:
+        n = cfg.n_layers
+        row["picks_prefill"] = drop_shares(routes[:n])
+        row["picks_decode_step"] = drop_shares(routes[n:2 * n])
+    row["generate_prefill_ms_gloo"] = 1e3 * res.prefill_sec
+    row["generate_decode_ms_gloo"] = 1e3 * res.decode_sec
+    row["tokens"] = res.tokens.tolist()
+    del engine
+    ccfg = cfg
+    if cfg.n_experts:       # cap = tokens: nothing drops at any step
+        ccfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                   / cfg.top_k)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full = prefill(params, {k: v[:, :clen] if k == "tokens" else v
+                                for k, v in batch.items()}, ccfg,
+                       mesh)[0].float()
+        logits, pre = prefill(params, {k: v[:, :clen - steps]
+                                       if k == "tokens" else v
+                                       for k, v in batch.items()}, ccfg, mesh)
+        cache = ServeEngine(ccfg, params, mesh, max_len=clen).decode_cache(
+            pre, SERVE_BATCH)
+        del pre
+        for i in range(clen - steps, clen):
+            logits, cache = decode(params, cache, {"tokens": toks[:, i:i + 1]},
+                                   i, ccfg, mesh)
+    row["consistency"] = (float((logits.float() - full).abs().max()),
+                          float(full.abs().max()))
+    row["consistency_ms_gloo"] = 1e3 * (time.perf_counter() - t0)
+    row["peak_gib"] = _tp_peak_gib(dev)
+    del cache, logits, full
+    cut_mesh = None
+    if arch in TP_FAMILY_F32_CUT:
+        cut_mesh = _tp_f32_steps(arch, ccfg, params, mesh, batch, ctx)
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        whole = init_params(cfg, 0, dev)
+        with torch.inference_mode():
+            want = prefill(whole, batch, cfg)[0].float().cpu()
+        if cut_mesh is not None:
+            cut_one = _tp_f32_steps(arch, ccfg, whole, None, batch, None)
+            row["f32_cut_err"] = max(
+                float((a - w).abs().max()) / float(w.abs().max())
+                for a, w in zip(cut_mesh, cut_one))
+            _tp_require(row["f32_cut_err"] <= TP_LOGIT_RTOL, f"tp {arch} "
+                        f"f32 cut: logits {row['f32_cut_err']} of max|logits|"
+                        " from one device's")
+        del whole
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        err, top = float((got - want).abs().max()), float(want.abs().max())
+        row["logit_err"] = err / top
+        _tp_require(err <= TP_FAMILY_LOGIT_RTOL[arch] * top, f"tp {arch}: "
+                    f"prefill "
+                    f"logits {err} apart from one device's, largest {top}")
+    dist.barrier()
+    return row
+
+
+def _tp_f32_steps(arch: str, cfg, params, mesh, batch, ctx) -> list:
+    """``cfg`` cut to TP_FAMILY_F32_CUT's layers, in f32: the logits (whole
+    vocab, on the host) of a prefill and of each decode step after it,
+    teacher-forced through the batch's next tokens, on the mesh (``params``
+    this process's blocks, ``ctx`` its context) or on one device."""
+    import dataclasses
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import build_forward
+    from repro_torch.serve.engine import ServeEngine
+
+    layers, plen, steps = TP_FAMILY_F32_CUT[arch]
+    ccfg, cut = cut_depth(cfg, params, layers)
+    ccfg = dataclasses.replace(ccfg, dtype="float32")
+    cut = tree_map(lambda t: t.float(), cut)
+    args = () if mesh is None else (mesh,)
+    toks = batch["tokens"]
+    whole = (lambda x: x) if ctx is None else \
+        (lambda x: ctx.all_gather(x, 1))
+    prefill, decode = (build_forward(ccfg, k) for k in ("prefill", "decode"))
+    out = []
+    with torch.inference_mode():
+        logits, pre = prefill(cut, {"tokens": toks[:, :plen]}, ccfg, *args)
+        out.append(whole(logits).float().cpu())
+        eng = (ServeEngine(ccfg, cut, mesh, max_len=plen + steps) if mesh
+               is not None else ServeEngine(ccfg, cut, device=toks.device,
+                                            max_len=plen + steps))
+        cache = eng.decode_cache(pre, toks.shape[0])
+        del pre
+        for i in range(plen, plen + steps):
+            logits, cache = decode(cut, cache, {"tokens": toks[:, i:i + 1]},
+                                   i, ccfg, *args)
+            out.append(whole(logits).float().cpu())
+    return out
+
+
+def _tp_train_moe(mesh, dev, rank: int) -> dict:
+    """(b) of slice 14: one DeepSeek-MoE 16B train step at its 9-layer cut
+    (DEEPSEEK_TRAIN_LAYERS), 4 x 2048, on the mesh (launches, ms, peak),
+    then, on process 0 alone, the same step on one device."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import TokenDataset
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = dataclasses.replace(get("deepseek-moe-16b"),
+                              n_layers=DEEPSEEK_TRAIN_LAYERS)
+    batch = TokenDataset(cfg.vocab, 2048, TRAIN_BATCH, seed=1).batch_at(0)
+    params = _tp_init(cfg, dev, mesh, rank)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, mesh)
+    row = {"layers": cfg.n_layers}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)
+    row["loss"] = float(m["loss"])
+    row["grad_norm"] = float(m["grad_norm"])
+    row["step_ms_gloo"] = 1e3 * (time.perf_counter() - t0)
+    row["launches"] = read_counts()
+    row["peak_gib"] = _tp_peak_gib(dev)
+    del params, opt, step, m
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        whole = init_params(cfg, 0, dev)
+        _, _, m = make_train_step(cfg, device=dev)(whole, adamw_init(whole),
+                                                   batch)
+        row["one_device"] = (float(m["loss"]), float(m["grad_norm"]))
+        del whole, m
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return row
 
 
 def _tp_worker(rank: int, world: int, store: str, queue, opts: dict) -> None:
@@ -3773,6 +4095,11 @@ def _tp_worker(rank: int, world: int, store: str, queue, opts: dict) -> None:
                             for a in opts["serve"]}
             if opts["train"]:
                 out["train"] = _tp_train(mesh, dev, rank)
+            out["modes"] = _tp_modes(mesh, dev) if opts["modes"] else {}
+            out["families"] = {a: _tp_family(a, mesh, dev, rank)
+                               for a in opts["families"]}
+            if opts["moe_train"]:
+                out["moe_train"] = _tp_train_moe(mesh, dev, rank)
         finally:
             dist.destroy_process_group()
         queue.put((rank, out))
@@ -3823,70 +4150,25 @@ def tp_processes(opts: dict, base: Path) -> list[dict]:
 
 
 def tp_kernel_rows(dev, launches: dict) -> list[dict]:
-    """A process's kernel shapes at model 2 (TP_FLASH, TP_SSD), against
+    """A process's kernel shapes at model 2 (TP_FLASH, TP_SSD; slice 14's
+    TP_FAMILY_FLASH) and the offset flash kernels at TP_CP_FLASH, against
     their plain versions, then timed in turns with PyTorch's SDPA (flash)
-    beside the plain version and the bound."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+    beside the plain version and the bound (:func:`tp_flash_rows`)."""
     from repro_torch.kernels.ssd import ops as sops, ref as sref
 
     gen = torch.Generator(device=dev).manual_seed(13)
     b, s, h, g, d = (TP_FLASH[k] for k in "bshgd")
-    q, k, v = flash_inputs(gen, b, s, h, g, d, torch.bfloat16, dev)
-    out, lse = fops.flash_attention_fwd(q, k, v, causal=True,
-                                        return_lse=True)
-    errs = {"flash_fwd": check_close("flash_fwd", out, fref.attention_ref(
-        q, k, v, causal=True), "at a process's Llama shape (h 12, g 4)")}
-    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
-    got = fops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True)
-    want = fref.attention_bwd_ref(q, k, v, out, lse, dout, causal=True)
-    errs["flash_bwd"] = max(check_close("flash_bwd", a, w, f"d{n} at a "
-                                        "process's Llama shape")
-                            for n, a, w in zip("qkv", got, want))
-    fwd_flops = 4 * b * h * d * s * (s + 1) / 2
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                  for x in (q, k, v))
-    kern = lambda: fops.flash_attention_fwd(q, k, v, causal=True)  # noqa
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    with torch.no_grad():
-        turns = [cuda_ms(kern, 20), cuda_ms(lib, 20), cuda_ms(kern, 20)]
-    shape = dict(TP_FLASH, causal=True)
-    bnd, bby = bound(2 * (2 * b * s * h * d + 2 * b * s * g * d), fwd_flops,
-                     PEAK_BF16_FLOPS)
-    rows = [{"name": "flash_fwd", "cell": "tp llama3.2-3b", "shape": shape,
-             "launches": launches["flash_fwd"],
-             "max_abs_err": errs["flash_fwd"],
-             "ms": (turns[0] + turns[2]) / 2,
-             "plain_ms": cuda_ms(lambda: fref.attention_ref(
-                 q, k, v, causal=True), 3),
-             "bound_ms": bnd, "bound_by": bby, "library_ms": turns[1],
-             "flops": fwd_flops}]
-    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                        enable_gqa=True)
-    dot = dout.transpose(1, 2).contiguous()
-    kern = lambda: fops.flash_attention_bwd(  # noqa: E731
-        q, k, v, out, lse, dout, causal=True)
-    lib = lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,  # noqa: E731
-                                      retain_graph=True)
-    turns = [cuda_ms(kern, 10), cuda_ms(lib, 10), cuda_ms(kern, 10)]
-    flops = 2.5 * fwd_flops
-    bnd, bby = bound(2 * (4 * b * s * h * d + 4 * b * s * g * d)
-                     + 4 * b * s * h, flops, PEAK_BF16_FLOPS)
-    rows.append({"name": "flash_bwd", "cell": "tp llama3.2-3b",
-                 "shape": shape, "launches": launches["flash_bwd"],
-                 "max_abs_err": errs["flash_bwd"],
-                 "ms": (turns[0] + turns[2]) / 2,
-                 "plain_ms": cuda_ms(lambda: fref.attention_bwd_ref(
-                     q, k, v, out, lse, dout, causal=True), 3),
-                 "bound_ms": bnd, "bound_by": bby, "library_ms": turns[1],
-                 "flops": flops})
-    del q, k, v, out, lse, dout, qt, kt, vt, ot, dot
+    cp, fam = launches["cp"], launches["families"]
+    rows = tp_flash_rows(dev, gen, [
+        ("tp llama3.2-3b", (b, s, s, h, g, d, True, 0),
+         launches["flash_fwd"], launches["flash_bwd"]),
+        ("cp llama3.2-3b", TP_CP_FLASH, cp["flash_fwd"], cp["flash_bwd"])]
+        + [(f"tp {a}", x, fam[a], None) for a, x in TP_FAMILY_FLASH.items()])
     b, c, qq, g, r, p, n = (TP_SSD[k] for k in ("b", "c", "q", "g", "r",
                                                   "p", "n"))
     x, dt, cum, bm, cm = ssd_inputs(gen, b, c, qq, g, r, p, n,
                                     torch.bfloat16, dev)
-    errs["ssd_diag"] = check_close("ssd_diag", sops.ssd_diag(
+    err = check_close("ssd_diag", sops.ssd_diag(
         x, dt, cum, bm, cm, r, out_dtype=torch.float32), sref.ssd_diag_ref(
         x, dt, cum, bm, cm, r, out_dtype=torch.float32),
         "at a process's Mamba2 shape (40 heads)")
@@ -3905,7 +4187,7 @@ def tp_kernel_rows(dev, launches: dict) -> list[dict]:
                      20)]
     rows.append({"name": "ssd_diag", "cell": "tp mamba2-2.7b",
                  "shape": dict(TP_SSD), "launches": launches["ssd_diag"],
-                 "max_abs_err": errs["ssd_diag"],
+                 "max_abs_err": err,
                  "ms": (turns[0] + turns[2]) / 2, "plain_ms": turns[1],
                  "bound_ms": bnd, "bound_by": bby, "library_ms": None,
                  "flops": tc_flops})
@@ -3918,6 +4200,81 @@ def tp_kernel_rows(dev, launches: dict) -> list[dict]:
     return rows
 
 
+def tp_flash_rows(dev, gen, cells: list) -> list[dict]:
+    """flash_fwd (and flash_bwd where its launches are given) at each of
+    ``cells`` — (cell, (b, s, t, h, g, d, causal, q_offset), flash_fwd's
+    launches, flash_bwd's or None) — against its plain version, timed in
+    turns with SDPA (its causal flag at offset 0, else the boolean mask of
+    the offset) beside the plain version and the bound of the keys the
+    mask leaves visible."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops, ref as fref
+
+    rows = []
+    for cell, (b, s, t, h, g, d, causal, off), fwd_l, bwd_l in cells:
+        q, k, v = flash_inputs(gen, b, s, h, g, d, torch.bfloat16, dev, t)
+        kw = dict(causal=causal, q_offset=off)
+        out, lse = fops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        what = f"at {cell}'s process shape (h {h}, g {g}, q_offset {off})"
+        err = check_close("flash_fwd", out, fref.attention_ref(q, k, v, **kw),
+                          what)
+        # the keys each query row sees: all of them, or positions <= its own
+        pairs = s * t if not causal else s * off + s * (s + 1) / 2
+        fwd_flops = 4 * b * h * d * pairs
+        mask = None
+        if causal and off:
+            i = off + torch.arange(s, device=dev)[:, None]
+            mask = torch.arange(t, device=dev)[None] <= i
+        sdpa = dict(attn_mask=mask, is_causal=causal and not off,
+                    enable_gqa=True)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        kern = lambda: fops.flash_attention_fwd(q, k, v, **kw)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, **sdpa)
+        with torch.no_grad():
+            turns = [cuda_ms(kern, 20), cuda_ms(lib, 20), cuda_ms(kern, 20)]
+        bnd, bby = bound(2 * (2 * b * s * h * d + 2 * b * t * g * d),
+                         fwd_flops, PEAK_BF16_FLOPS)
+        shape = dict(b=b, s=s, t=t, h=h, g=g, d=d, causal=causal,
+                     q_offset=off)
+        rows.append({"name": "flash_fwd", "cell": cell, "shape": shape,
+                     "launches": fwd_l, "max_abs_err": err,
+                     "ms": (turns[0] + turns[2]) / 2,
+                     "plain_ms": cuda_ms(lambda: fref.attention_ref(
+                         q, k, v, **kw), 3),
+                     "bound_ms": bnd, "bound_by": bby,
+                     "library_ms": turns[1], "flops": fwd_flops})
+        if bwd_l is not None:
+            dout = torch.randn(q.shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+            got = fops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            want = fref.attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+            err = max(check_close("flash_bwd", a, w, f"d{n} {what}")
+                      for n, a, w in zip("qkv", got, want))
+            ot = F.scaled_dot_product_attention(qt, kt, vt, **sdpa)
+            dot = dout.transpose(1, 2).contiguous()
+            kern = lambda: fops.flash_attention_bwd(  # noqa: E731
+                q, k, v, out, lse, dout, **kw)
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                ot, (qt, kt, vt), dot, retain_graph=True)
+            turns = [cuda_ms(kern, 10), cuda_ms(lib, 10), cuda_ms(kern, 10)]
+            flops = 2.5 * fwd_flops
+            bnd, bby = bound(2 * (4 * b * s * h * d + 4 * b * t * g * d)
+                             + 4 * b * s * h, flops, PEAK_BF16_FLOPS)
+            rows.append({"name": "flash_bwd", "cell": cell, "shape": shape,
+                         "launches": bwd_l, "max_abs_err": err,
+                         "ms": (turns[0] + turns[2]) / 2,
+                         "plain_ms": cuda_ms(lambda: fref.attention_bwd_ref(
+                             q, k, v, out, lse, dout, **kw), 3),
+                         "bound_ms": bnd, "bound_by": bby,
+                         "library_ms": turns[1], "flops": flops})
+            del dout, got, want, ot, dot
+        del q, k, v, out, lse, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
 def tp_report(outs: list[dict]) -> dict:
     """phase_tp's checks across its processes' results (:func:`_tp_worker`),
     printed; the phase's row."""
@@ -3927,7 +4284,7 @@ def tp_report(outs: list[dict]) -> dict:
           f"of bf16 and f32 CUDA tensors exact, no upcast; a 64 MiB sum "
           f"all-reduce a process: {json.dumps(row['gloo_64mib_ms'])} ms "
           f"({CARD})")
-    for arch in TP_SMOKE:
+    for arch in outs[0]["smoke"]:
         print(f"tp smoke {arch} (f32) on data 1 x model 2 against one "
               f"device: {json.dumps(outs[0]['smoke'][arch])}")
     for arch, (plen, kernel, (clen, steps)) in TP_CELLS.items():
@@ -4008,6 +4365,117 @@ def tp_report(outs: list[dict]) -> dict:
                     "launches": train[0]["launches"],
                     "step_ms_gloo": [g["step_ms_gloo"] for g in train],
                     "peak_gib": [g["peak_gib"] for g in train]}
+    row.update(tp_report_families(outs))
+    return row
+
+
+def tp_report_families(outs: list[dict]) -> dict:
+    """slice 14's checks across the processes' results, printed; its part
+    of the phase's row."""
+    from repro_torch.configs import get
+    row = {"smoke_modes": outs[0]["modes"]}
+    for mode, got in outs[0]["modes"].items():
+        calls = [[tuple(c) for c in o["modes"][mode]["flash_calls"]]
+                 for o in outs]
+        n = TP_MODE_PROMPT // TP_MODEL
+        ok = all(c[1] == 3 for cs in calls for c in cs) and (
+            all(c[2] == 0 for cs in calls for c in cs) if mode == "batch"
+            else all((n, 3, r * n) in cs for r, cs in enumerate(calls)))
+        if not ok:
+            fail(f"tp mode {mode}: flash calls (q rows, heads, q_offset) "
+                 f"{calls}: every head, and in 'cp' each process's block of "
+                 f"{n} positions at its offset")
+        print(f"tp smoke llama3.2-3b 3 heads (f32) in {mode!r} mode, "
+              f"{TP_MODE_BATCH[mode]} rows of {TP_MODE_PROMPT}, on data 1 x "
+              f"model 2 against one device: {json.dumps(got)}; flash calls "
+              f"(q rows, heads, q_offset) a process {calls}")
+    cut_layers = {"deepseek-moe-16b": 28, "whisper-large-v3": 32,
+                  VLM: 12}
+    for arch in TP_FAMILY_CELLS:
+        rows = [o["families"][arch] for o in outs]
+        cfg = get(arch)
+        want_heads = {"deepseek-moe-16b": [[8, 8]],
+                      "whisper-large-v3": [[10, 10]], VLM: [[32, 4]]}[arch]
+        for r, got in enumerate(rows):
+            n = cut_layers[arch]
+            if got["launches"]["flash_fwd"] != n or got["kernel_calls"] != n:
+                fail(f"tp {arch}: process {r} launched flash_fwd "
+                     f"{got['launches']['flash_fwd']} times a generate "
+                     f"({got['kernel_calls']} calls), not {n}")
+            if [list(x) for x in got["heads"]] != want_heads:
+                fail(f"tp {arch}: process {r} ran flash_fwd at heads "
+                     f"{got['heads']}, not {want_heads}")
+        if rows[0]["tokens"] != rows[1]["tokens"]:
+            fail(f"tp {arch}: the processes returned other tokens")
+        err = max(g["consistency"][0] for g in rows)
+        top = max(g["consistency"][1] for g in rows)
+        limit = CONSISTENCY_BF16_RTOL[arch]
+        plen, (clen, steps), _ = TP_FAMILY_CELLS[arch]
+        picks = (f"expert picks (shares) prefill "
+                 f"{json.dumps(rows[0]['picks_prefill'])}, a decode step "
+                 f"{json.dumps(rows[0]['picks_decode_step'])}; "
+                 if "picks_prefill" in rows[0] else "")
+        print(f"tp {arch} bf16 at {rows[0]['layers']} of {cfg.n_layers} "
+              f"layers on data 1 x model 2: prefill logits within "
+              f"{rows[0]['logit_err']:.4g} of one device's (limit "
+              f"{TP_FAMILY_LOGIT_RTOL[arch]:.4g}); "
+              + (f"f32 at {TP_FAMILY_F32_CUT[arch][0]} layers, prefill "
+                 f"{TP_FAMILY_F32_CUT[arch][1]} + {TP_FAMILY_F32_CUT[arch][2]}"
+                 f" decode steps, within {rows[0]['f32_cut_err']:.4g} of one "
+                 f"device's (limit {TP_LOGIT_RTOL:.4g}); "
+                 if "f32_cut_err" in rows[0] else "")
+              + f"consistency prefill {clen} vs "
+              f"prefill {clen - steps} + {steps} decode steps: {err:.4g} of "
+              f"max|logits| {top:.4g} (limit {limit * top:.4g}; "
+              f"{rows[0]['consistency_ms_gloo']:.0f} ms); {picks}launches a "
+              f"generate a process {json.dumps(rows[0]['launches'])}; heads "
+              f"{rows[0]['heads']}; gloo through the host: generate prefill "
+              f"{rows[0]['generate_prefill_ms_gloo']:.1f} ms, decode "
+              f"{rows[0]['generate_decode_ms_gloo']:.1f} ms; peak GiB "
+              f"{[g['peak_gib'] for g in rows]} ({CARD})")
+        if not err <= limit * top:
+            fail(f"tp {arch}: prefill/decode consistency {err} > {limit} * "
+                 f"{top}")
+        row[arch] = {k: [g[k] for g in rows if k in g] for k in
+                     ("consistency_ms_gloo", "generate_prefill_ms_gloo",
+                      "generate_decode_ms_gloo", "peak_gib")}
+        row[arch].update(logit_err=rows[0]["logit_err"],
+                         consistency=(err, top), layers=rows[0]["layers"],
+                         launches=rows[0]["launches"],
+                         heads=rows[0]["heads"],
+                         **{k: rows[0][k] for k in ("picks_prefill",
+                                                    "picks_decode_step")
+                            if k in rows[0]})
+    train = [o["moe_train"] for o in outs]
+    one_loss, one_norm = train[0]["one_device"]
+    for r, got in enumerate(train):
+        n = DEEPSEEK_TRAIN_LAYERS
+        if got["launches"]["flash_fwd"] != 2 * n or \
+                got["launches"]["flash_bwd"] != n:
+            fail(f"tp train deepseek: process {r} launched "
+                 f"{got['launches']}, not {2 * n}/{n} flash_fwd/flash_bwd")
+        if not abs(got["loss"] - one_loss) <= TP_BF16_LOSS_RTOL * one_loss:
+            fail(f"tp train deepseek: process {r}'s loss {got['loss']} "
+                 f"against one device's {one_loss}")
+        if not abs(got["grad_norm"] - one_norm) <= \
+                TP_BF16_GRAD_NORM_RTOL * one_norm:
+            fail(f"tp train deepseek: process {r}'s reduced-gradient norm "
+                 f"{got['grad_norm']} against one device's {one_norm}")
+    print(f"tp train DeepSeek-MoE 16B at {DEEPSEEK_TRAIN_LAYERS} layers, 4 x "
+          f"2048 bf16 on data 1 x model 2 (32 experts a process): losses "
+          f"{[g['loss'] for g in train]} against one device's {one_loss} "
+          f"(limit {TP_BF16_LOSS_RTOL:.4g} relative); reduced-gradient norms "
+          f"{[g['grad_norm'] for g in train]} against {one_norm} (limit "
+          f"{TP_BF16_GRAD_NORM_RTOL:.4g} relative); launches a process "
+          f"{json.dumps(train[0]['launches'])}; step ms (gloo through the "
+          f"host) {[round(g['step_ms_gloo'], 1) for g in train]}; peak GiB "
+          f"{[g['peak_gib'] for g in train]} ({CARD})")
+    row["moe_train"] = {"losses": [g["loss"] for g in train],
+                        "one_device": [one_loss, one_norm],
+                        "grad_norms": [g["grad_norm"] for g in train],
+                        "launches": train[0]["launches"],
+                        "step_ms_gloo": [g["step_ms_gloo"] for g in train],
+                        "peak_gib": [g["peak_gib"] for g in train]}
     return row
 
 
@@ -4028,10 +4496,21 @@ def phase_tp(dev) -> dict:
     flash_fwd/flash_bwd a process, peak GiB a process);
     (c) a process's kernel shapes against their plain versions, timed
     beside SDPA and their bounds.  Wall times of (a) and (b) are gloo's
-    through the host, not a tensor-parallel speed."""
+    through the host, not a tensor-parallel speed.
+
+    Slice 14 adds to each: (a) the f32 smoke Whisper, VLM, DeepSeek-MoE,
+    Mixtral and Jamba, and a 3-head Llama variant in the "batch" and "cp"
+    modes; (b) DeepSeek-MoE 16B, Whisper large-v3 and the VLM at 2 units
+    served against one device, with their consistency on the mesh, and a
+    DeepSeek-MoE train step at 9 layers; (c) flash_fwd and flash_bwd with a
+    query offset at a "cp" shape, and a process's flash_fwd at DeepSeek's
+    and Whisper's heads."""
     torch.cuda.empty_cache()
-    outs = tp_processes({"device": "cuda", "smoke": list(TP_SMOKE),
-                         "serve": list(TP_CELLS), "train": True},
+    outs = tp_processes({"device": "cuda",
+                         "smoke": list(TP_SMOKE) + list(TP_SMOKE_FAMILIES),
+                         "serve": list(TP_CELLS), "train": True,
+                         "modes": True, "families": list(TP_FAMILY_CELLS),
+                         "moe_train": True},
                         ROOT / "build" / "chip_smoke" / "tp")
     row = tp_report(outs)
     step = row["train"]["launches"]
@@ -4039,6 +4518,12 @@ def phase_tp(dev) -> dict:
         "flash_fwd"], "train_step": step["flash_fwd"]},
         "flash_bwd": {"train_step": step["flash_bwd"]},
         "ssd_diag": {"generate": row["mamba2-2.7b"]["launches"]["ssd_diag"]}}
+    cp = row["smoke_modes"]["cp"]["mesh_launches"]
+    launches.update(
+        cp={"flash_fwd": {"cp smoke": cp.get("flash_fwd", 0)},
+            "flash_bwd": {"cp smoke": cp.get("flash_bwd", 0)}},
+        families={a: {"generate": row[a]["launches"]["flash_fwd"]}
+                  for a in TP_FAMILY_FLASH})
     row["kernels"] = tp_kernel_rows(dev, launches)
     return row
 

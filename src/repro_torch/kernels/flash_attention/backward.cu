@@ -8,7 +8,10 @@
 // dq (b,s,h,d) and dk, dv (b,t,g,d), with the query heads of a KV group
 // summed into their group (repro/models/flash.py:281-283).  Causal, sliding
 // window (causal rows only, as the forward) and full attention; any s and
-// t; d in {16, 32, 64, 128}; f32 or bf16.
+// t; d in {16, 32, 64, 128}; f32 or bf16.  A query position offset (qoff,
+// poff inside) places q's row i at position poff + i for the masks and the
+// tile skips, as the forward's: a context-parallel block of q rows against
+// every key.  Offset 0 computes what the kernels computed before it.
 //
 //   D  = rowsum(dO o O)
 //   per (q tile x key tile):  S = Q K^T scale, masked as the forward masks;
@@ -137,15 +140,17 @@ constexpr int kBQ = 64;           // q rows a tile
 constexpr int kBK = 64;           // keys a tile
 constexpr int kF32Rows = 32;      // rows or keys staged a step
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int s, int t,
-                                        int causal, int window) {
-  if (qpos >= s || kpos >= t) return false;
+// Whether q row `qrow` (at position qrow + poff) sees key `kpos`.
+__device__ __forceinline__ bool visible(int qrow, int poff, int kpos, int s,
+                                        int t, int causal, int window) {
+  if (qrow >= s || kpos >= t) return false;
   if (!causal) return true;
+  const int qpos = qrow + poff;
   return kpos <= qpos && (window <= 0 || kpos > qpos - window);
 }
 
-// Key tiles [lo, hi) of `keys` keys that can hold a visible key for rows
-// [q0, q0 + rows): the forward's tile_range.
+// Key tiles [lo, hi) of `keys` keys that can hold a visible key for query
+// positions [q0, q0 + rows): the forward's tile_range.
 __device__ __forceinline__ void key_range(int q0, int rows, int keys, int t,
                                           int causal, int window, int* lo,
                                           int* hi) {
@@ -158,19 +163,22 @@ __device__ __forceinline__ void key_range(int q0, int rows, int keys, int t,
   }
 }
 
-// Q tiles [lo, hi) of `rows` rows holding a row that sees a key of
-// [k0, k0 + keys); empty (lo >= hi) when none does.
+// Q tiles [lo, hi) of `rows` rows (row i at position i + poff) holding a
+// row that sees a key of [k0, k0 + keys); empty (lo >= hi) when none does.
 __device__ __forceinline__ void q_range(int k0, int keys, int rows, int s,
-                                        int causal, int window, int* lo,
-                                        int* hi) {
+                                        int causal, int window, int poff,
+                                        int* lo, int* hi) {
   *lo = 0;
   *hi = (s + rows - 1) / rows;
   if (causal) {
-    *lo = k0 / rows;                     // earlier rows see none of them
+    *lo = max(k0 - poff, 0) / rows;      // earlier rows see none of them
     if (window > 0) {
       // the last row that sees key k0 + keys - 1
-      const long long last = static_cast<long long>(k0) + keys - 1 + window - 1;
-      *hi = static_cast<int>(min(static_cast<long long>(*hi), last / rows + 1));
+      const long long last =
+          static_cast<long long>(k0) + keys - 1 + window - 1 - poff;
+      *hi = last < 0 ? 0
+                     : static_cast<int>(min(static_cast<long long>(*hi),
+                                            last / rows + 1));
     }
   }
 }
@@ -275,7 +283,7 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                            const float* __restrict__ dvec,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
                            int s, int s_pad, int t, int h, int g, int causal,
-                           int window, float scale) {
+                           int window, int poff, float scale) {
   using KW = Swz<D, kKeys>;
   using QW = Swz<D, kRows>;
   using L = DkdvSmem<D>;
@@ -290,7 +298,7 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const int k0 = blockIdx.z * kKeys;       // the heaviest causal tiles first
   const int r = h / g;
   int qlo, qhi;
-  q_range(k0, kKeys, kRows, s, causal, window, &qlo, &qhi);
+  q_range(k0, kKeys, kRows, s, causal, window, poff, &qlo, &qhi);
   const int per_head = max(qhi - qlo, 0);
   const int steps = r * per_head;        // (head, q tile), head slowest
 
@@ -356,10 +364,11 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < steps; ++i) {
     const int st = i % kDkdvStages;
     const int q0 = (qlo + i % per_head) * kRows;
+    const int p0 = q0 + poff;                            // its position
     mbar_wait(&full[st], (i / kDkdvStages) & 1);
     // a q tile that sees none of this warpgroup's keys is skipped
-    const bool dead = causal && (kw0 > q0 + kRows - 1 ||
-                                 (window > 0 && kw0 + 63 <= q0 - window));
+    const bool dead = causal && (kw0 > p0 + kRows - 1 ||
+                                 (window > 0 && kw0 + 63 <= p0 - window));
     if (!dead) {
       const uint32_t sq = smem_u32(smem + L::kQ + st * QW::kTileBytes);
       const uint32_t sdo = smem_u32(smem + L::kDO + st * QW::kTileBytes);
@@ -392,8 +401,8 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<1>();
       const bool masked =
           q0 + kRows > s || kw0 + 64 > t ||
-          (causal && (kw0 + 63 > q0 ||
-                      (window > 0 && kw0 <= q0 + kRows - 1 - window)));
+          (causal && (kw0 + 63 > p0 ||
+                      (window > 0 && kw0 <= p0 + kRows - 1 - window)));
       const float* lrow =
           reinterpret_cast<const float*>(smem + L::kL + st * kRows * 4);
       const float* drow =
@@ -407,8 +416,9 @@ flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 4; ++e) {
           float& p = sacc[4 * j + e];
           p = exp2f(p * sl - ((e & 1) ? lv.y : lv.x));
-          if (masked && !visible(q0 + col + (e & 1), (e & 2) ? kpos1 : kpos0,
-                                 s, t, causal, window))
+          if (masked && !visible(q0 + col + (e & 1), poff,
+                                 (e & 2) ? kpos1 : kpos0, s, t, causal,
+                                 window))
             p = 0.f;
         }
         // the accumulator pair (4j, 4j + 1) is A register 2j
@@ -478,7 +488,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                          const float* __restrict__ lse2,
                          const float* __restrict__ dvec,
                          bf16* __restrict__ dq, int s, int s_pad, int t, int h,
-                         int g, int causal, int window, float scale) {
+                         int g, int causal, int window, int poff,
+                         float scale) {
   using QW = Swz<D, kQRows>;
   using KW = Swz<D, kKTile>;
   using L = DqSmem<D>;
@@ -493,7 +504,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kQRows;   // heaviest first
   const int kvh = head / (h / g);
   int lo, hi;
-  key_range(q0, kQRows, kKTile, t, causal, window, &lo, &hi);
+  key_range(q0 + poff, kQRows, kKTile, t, causal, window, &lo, &hi);
   const int steps = max(hi - lo, 0);
 
   // key tile lo + i of K and V into step i's stage
@@ -587,14 +598,14 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<1>();
     const bool masked =
         k0 + kKTile > t ||
-        (causal && (k0 + kKTile - 1 > qw0 ||
-                    (window > 0 && k0 <= qw0 + 63 - window)));
+        (causal && (k0 + kKTile - 1 > qw0 + poff ||
+                    (window > 0 && k0 <= qw0 + poff + 63 - window)));
 #pragma unroll
     for (int j = 0; j < kKTile / 2; ++j) {
       const bool hi_row = j & 2;
       float& p = sacc[j];
       p = exp2f(p * sl - (hi_row ? l1 : l0));
-      if (masked && !visible(hi_row ? qpos1 : qpos0,
+      if (masked && !visible(hi_row ? qpos1 : qpos0, poff,
                              k0 + 8 * (j / 4) + 2 * quad + (j & 1), s, t,
                              causal, window))
         p = 0.f;
@@ -657,7 +668,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ dvec,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int s, int t, int h, int g, int causal, int window,
-                          float scale) {
+                          int poff, float scale) {
   extern __shared__ __align__(16) float fsm[];
   float* sK = fsm;                           // kBK x (D + 1), a row a thread
   float* sV = sK + kBK * (D + 1);
@@ -685,7 +696,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
     mydV[c] = 0.f;
   }
   int qlo, qhi;
-  q_range(k0, kBK, kBQ, s, causal, window, &qlo, &qhi);
+  q_range(k0, kBK, kBQ, s, causal, window, poff, &qlo, &qhi);
   const int qend = min(qhi * kBQ, s);
 
   for (int hq = kvh * r; hq < (kvh + 1) * r; ++hq) {
@@ -707,7 +718,7 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q,
       __syncthreads();
 #pragma unroll 1
       for (int j = 0; j < kF32Rows; ++j) {
-        if (!visible(q0 + j, kpos, s, t, causal, window)) continue;
+        if (!visible(q0 + j, poff, kpos, s, t, causal, window)) continue;
         const float* qr = sQ + j * D;
         const float* orow = sO + j * D;
         float sc = 0.f, dp = 0.f;
@@ -744,7 +755,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ lse,
                         const float* __restrict__ dvec,
                         float* __restrict__ dq, int s, int t, int h, int g,
-                        int causal, int window, float scale) {
+                        int causal, int window, int poff, float scale) {
   extern __shared__ __align__(16) float fsm[];
   float* sQ = fsm;                           // kBQ x (D + 1), a row a thread
   float* sO = sQ + kBQ * (D + 1);
@@ -771,7 +782,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const float lq = qpos < s ? lse[lrow] : 0.f;
   const float dq_d = qpos < s ? dvec[lrow] : 0.f;
   int lo, hi;
-  key_range(q0, kBQ, kBK, t, causal, window, &lo, &hi);
+  key_range(q0 + poff, kBQ, kBK, t, causal, window, &lo, &hi);
   const int kend = min(hi * kBK, t);
 
   for (int k0 = lo * kBK; k0 < kend; k0 += kF32Rows) {
@@ -786,7 +797,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     __syncthreads();
 #pragma unroll 1
     for (int j = 0; j < kF32Rows; ++j) {
-      if (!visible(qpos, k0 + j, s, t, causal, window)) continue;
+      if (!visible(qpos, poff, k0 + j, s, t, causal, window)) continue;
       const float* kr = sK + j * D;
       const float* vr = sV + j * D;
       float sc = 0.f, dp = 0.f;
@@ -845,7 +856,8 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const float* lse, float* dvec, void* dq,
                 void* dk, void* dv, int b, int s, int t, int h, int g,
-                int causal, int window, float scale, cudaStream_t stream) {
+                int causal, int window, int poff, float scale,
+                cudaStream_t stream) {
   static bool set = false;
   if (!set) {
     cudaError_t e = opt_in(flash_bwd_dkdv_bf16_kernel<D>, DkdvSmem<D>::kBytes);
@@ -878,12 +890,12 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out,
   flash_bwd_dq_bf16_kernel<D>
       <<<dim3(h, b, (s + kQRows - 1) / kQRows), kThreads, DqSmem<D>::kBytes,
          stream>>>(tq_q, tdo_q, tk_t, tv_t, lse2, dvec, static_cast<bf16*>(dq),
-                   s, s_pad, t, h, g, causal, window, scale);
+                   s, s_pad, t, h, g, causal, window, poff, scale);
   flash_bwd_dkdv_bf16_kernel<D>
       <<<dim3(g, b, (t + kKeys - 1) / kKeys), kThreads, DkdvSmem<D>::kBytes,
          stream>>>(tq_r, tdo_r, tk_k, tv_k, lse2, dvec, static_cast<bf16*>(dk),
                    static_cast<bf16*>(dv), s, s_pad, t, h, g, causal, window,
-                   scale);
+                   poff, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -891,10 +903,11 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* dout, const float* lse, float* dvec, void* dq,
            void* dk, void* dv, int b, int s, int t, int h, int g, int is_bf16,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int causal, int window, int poff, float scale,
+           cudaStream_t stream) {
   if (is_bf16)
     return launch_bf16<D>(q, k, v, out, dout, lse, dvec, dq, dk, dv, b, s, t,
-                          h, g, causal, window, scale, stream);
+                          h, g, causal, window, poff, scale, stream);
   static bool set = false;
   if (!set) {
     cudaError_t e = opt_in(flash_bwd_dkdv_f32_kernel<D>, f32_dkdv_smem_bytes<D>());
@@ -911,10 +924,10 @@ int launch(const void* q, const void* k, const void* v, const void* out,
       static_cast<const float*>(out), fo, dvec, rows, D);
   flash_bwd_dq_f32_kernel<D><<<gq, kBQ, f32_dq_smem_bytes<D>(), stream>>>(
       fq, fk, fv, fo, lse, dvec, static_cast<float*>(dq), s, t, h, g, causal,
-      window, scale);
+      window, poff, scale);
   flash_bwd_dkdv_f32_kernel<D><<<gk, kBK, f32_dkdv_smem_bytes<D>(), stream>>>(
       fq, fk, fv, fo, lse, dvec, static_cast<float*>(dk),
-      static_cast<float*>(dv), s, t, h, g, causal, window, scale);
+      static_cast<float*>(dv), s, t, h, g, causal, window, poff, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -925,21 +938,23 @@ extern "C" {
 // q, out, dout, dq: (b, s, h, d); k, v, dk, dv: (b, t, g, d); all bf16
 // (is_bf16 = 1) or all f32; lse: (b, s, h) f32; dvec: f32 scratch of
 // 2 b h s_pad floats, s_pad = s rounded up to 128; h % g == 0; d in
-// {16, 32, 64, 128}; window <= 0 means none (and is ignored unless causal).
+// {16, 32, 64, 128}; window <= 0 means none (and is ignored unless causal);
+// qoff >= 0: the position of q's first row, as flash_fwd_launch's.
 int flash_bwd_launch(const void* q, const void* k, const void* v,
                      const void* out, const void* dout, const void* lse,
                      void* dvec, void* dq, void* dk, void* dv, int b, int s,
                      int t, int h, int g, int d, int is_bf16, int causal,
-                     int window, float scale, void* stream) {
+                     int window, int qoff, float scale, void* stream) {
   if (b <= 0 || s <= 0 || t <= 0) return 0;
+  if (qoff < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dd = static_cast<float*>(dvec);
   switch (d) {
-    case 16: return launch<16>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, t, h, g, is_bf16, causal, window, scale, st);
-    case 32: return launch<32>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, t, h, g, is_bf16, causal, window, scale, st);
-    case 64: return launch<64>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, t, h, g, is_bf16, causal, window, scale, st);
-    case 128: return launch<128>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, t, h, g, is_bf16, causal, window, scale, st);
+    case 16: return launch<16>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, t, h, g, is_bf16, causal, window, qoff, scale, st);
+    case 32: return launch<32>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, t, h, g, is_bf16, causal, window, qoff, scale, st);
+    case 64: return launch<64>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, t, h, g, is_bf16, causal, window, qoff, scale, st);
+    case 128: return launch<128>(q, k, v, out, dout, l, dd, dq, dk, dv, b, s, t, h, g, is_bf16, causal, window, qoff, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

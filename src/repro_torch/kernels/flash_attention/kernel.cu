@@ -41,6 +41,12 @@
 //   tile down, so the causal tiles with the most work start first and the
 //   short ones fill the tail.
 //
+//   Query position offset (qoff): row i of q is position qoff + i for the
+//   causal and window masks and the tile skip, while it is still read and
+//   written at row i.  A context-parallel block of q rows [o, o + s) runs
+//   against all t keys with qoff = o; qoff 0 computes what the kernel
+//   computed before the offset, bit for bit.
+//
 //   With a non-null lse (the training forward), the consumers also write
 //   each row's log-sum-exp, m + log l, in natural-log units: m is kept in
 //   log2-scaled units (exp2 above), so it is multiplied by ln 2 first.
@@ -112,7 +118,7 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int t, int causal,
   return kpos <= qpos && (window <= 0 || kpos > qpos - window);
 }
 
-// KV tiles [lo, hi) that can hold a visible key for query rows
+// KV tiles [lo, hi) that can hold a visible key for query positions
 // [q0, q0 + rows): the Pallas kernel's block skip.
 __device__ __forceinline__ void tile_range(int q0, int rows, int tile, int t,
                                            int causal, int window, int* lo,
@@ -143,7 +149,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       bf16* __restrict__ out, float* __restrict__ lse, int s,
-                      int t, int h, int g, int causal, int window,
+                      int t, int h, int g, int causal, int window, int qoff,
                       float scale) {
   using W = Swz<D, kTile>;
   using L = Smem<D>;
@@ -158,7 +164,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const int bi = blockIdx.y;
   const int wg = threadIdx.x / 128;
   int lo, hi;
-  tile_range(q0, kTile, kTile, t, causal, window, &lo, &hi);
+  tile_range(q0 + qoff, kTile, kTile, t, causal, window, &lo, &hi);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -201,6 +207,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const int qw0 = q0 + 64 * c;                         // warpgroup's rows
     const int qpos0 = qw0 + 16 * (tid / 32) + (tid % 32) / 4;
     const int qpos1 = qpos0 + 8;
+    const int pw0 = qw0 + qoff;                          // their positions
     constexpr uint32_t kSbo = 8 * W::kBytes;             // 8 rows of an atom
     const uint32_t sq = smem_u32(smem + L::kQ) + 64 * c * W::kBytes;
 
@@ -243,15 +250,15 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       // online softmax in f32, a row's values in the 4 lanes of a quad
       const bool masked =
           k0 + kTile > t ||
-          (causal && (k0 + kTile - 1 > qw0 ||
-                      (window > 0 && k0 <= qw0 + 63 - window)));
+          (causal && (k0 + kTile - 1 > pw0 ||
+                      (window > 0 && k0 <= pw0 + 63 - window)));
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
       for (int j = 0; j < 2 * kTile / 4; ++j) {
         float x = sacc[j] * sl;
         if (masked &&
-            !visible((j & 2) ? qpos1 : qpos0, k0 + 8 * (j / 4) + 2 * quad + (j & 1),
-                     t, causal, window))
+            !visible(((j & 2) ? qpos1 : qpos0) + qoff,
+                     k0 + 8 * (j / 4) + 2 * quad + (j & 1), t, causal, window))
           x = kNegInf;
         sacc[j] = x;
         if (j & 2) mx1 = fmaxf(mx1, x); else mx0 = fmaxf(mx0, x);
@@ -330,7 +337,7 @@ __global__ void __launch_bounds__(kBQ)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      float* __restrict__ lse, int s, int t, int h, int g,
-                     int causal, int window, float scale) {
+                     int causal, int window, int qoff, float scale) {
   extern __shared__ __align__(16) float fsm[];
   float* sQ = fsm;                           // kBQ x (D + 1)
   float* sK = sQ + kBQ * (D + 1);            // kF32Keys x D
@@ -357,7 +364,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m_run = kNegInf, l_run = 0.f;
 
   int lo, hi;
-  tile_range(q0, kBQ, kF32Keys, t, causal, window, &lo, &hi);
+  tile_range(q0 + qoff, kBQ, kF32Keys, t, causal, window, &lo, &hi);
   for (int jt = lo; jt < hi; ++jt) {
     const int k0 = jt * kF32Keys;
     __syncthreads();
@@ -376,8 +383,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float dot = 0.f;
 #pragma unroll
       for (int c = 0; c < D; ++c) dot = fmaf(qrow[c], sK[j * D + c], dot);
-      const float x = visible(qpos, k0 + j, t, causal, window) ? dot * scale
-                                                             : kNegInf;
+      const float x = visible(qpos + qoff, k0 + j, t, causal, window)
+                          ? dot * scale : kNegInf;
       sc[j] = x;
       mx = fmaxf(mx, x);
     }
@@ -409,7 +416,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* lse, int b, int s, int t, int h, int g, int causal,
-                int window, float scale, cudaStream_t stream) {
+                int window, int qoff, float scale, cudaStream_t stream) {
   static bool set = false;
   if (!set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -434,17 +441,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(h, b, (s + kTile - 1) / kTile);
   flash_fwd_bf16_kernel<D><<<grid, kThreads, Smem<D>::kBytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), lse, s, t, h, g, causal, window,
-      scale);
+      qoff, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int b, int s, int t, int h, int g, int is_bf16,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int causal, int window, int qoff, float scale,
+           cudaStream_t stream) {
   if (is_bf16)
     return launch_bf16<D>(q, k, v, out, lse, b, s, t, h, g, causal, window,
-                          scale, stream);
+                          qoff, scale, stream);
   static bool set = false;
   if (!set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -457,7 +465,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
   flash_fwd_f32_kernel<D><<<grid, kBQ, f32_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, s, t, h,
-      g, causal, window, scale);
+      g, causal, window, qoff, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,19 +476,21 @@ extern "C" {
 // q, out: (b, s, h, d); k, v: (b, t, g, d); all bf16 (is_bf16 = 1) or all
 // f32; h % g == 0; d in {16, 32, 64, 128}; window <= 0 means none (and is
 // ignored unless causal, as in the Pallas kernel).  lse: null, or f32
-// (b, s, h) to receive each row's log-sum-exp (natural log).
+// (b, s, h) to receive each row's log-sum-exp (natural log).  qoff >= 0:
+// the position of q's first row (the masks' and the tile skip's).
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* out,
                      void* lse, int b, int s, int t, int h, int g, int d,
-                     int is_bf16, int causal, int window, float scale,
-                     void* stream) {
+                     int is_bf16, int causal, int window, int qoff,
+                     float scale, void* stream) {
   if (b <= 0 || s <= 0 || t <= 0) return 0;
+  if (qoff < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   switch (d) {
-    case 16: return launch<16>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, scale, st);
-    case 32: return launch<32>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, scale, st);
-    case 64: return launch<64>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, scale, st);
-    case 128: return launch<128>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, scale, st);
+    case 16: return launch<16>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, qoff, scale, st);
+    case 32: return launch<32>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, qoff, scale, st);
+    case 64: return launch<64>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, qoff, scale, st);
+    case 128: return launch<128>(q, k, v, out, l, b, s, t, h, g, is_bf16, causal, window, qoff, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

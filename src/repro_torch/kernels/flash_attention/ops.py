@@ -10,6 +10,9 @@ the kernels' shapes and dtypes, charged what the reference's walker
 charges, and no launch.  ``LAUNCHES`` counts wrapper calls that
 launched their kernel, one per call and nowhere else (``flash_bwd`` is
 three kernels on one stream: D = rowsum(dO o O), dQ, and dK/dV).
+``q_offset`` is the position of q's first row for the causal and window
+masks (a context-parallel block of query rows against every key); 0, the
+default, is the attention of the whole sequence.
 """
 from __future__ import annotations
 
@@ -44,8 +47,9 @@ def reset_counts() -> None:
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: the launchers' C signatures, set when a library is loaded
-PROTOTYPES = {"flash_fwd_launch": ([_P] * 5 + [_I] * 9 + [_F, _P], _I)}
-BWD_PROTOTYPES = {"flash_bwd_launch": ([_P] * 10 + [_I] * 9 + [_F, _P], _I)}
+PROTOTYPES = {"flash_fwd_launch": ([_P] * 5 + [_I] * 10 + [_F, _P], _I)}
+BWD_PROTOTYPES = {"flash_bwd_launch": ([_P] * 10 + [_I] * 10 + [_F, _P],
+                                       _I)}
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,10 +81,17 @@ def _on(kind: str, *xs: torch.Tensor) -> bool:
     return all(x.device.type == kind for x in xs)
 
 
+def _offset(q_offset) -> int:
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
+    return q_offset
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         return_lse: bool = False, q_chunk: int = Q_CHUNK,
-                        kv_chunk: int = KV_CHUNK):
+                        kv_chunk: int = KV_CHUNK, q_offset: int = 0):
     """q: (b,s,h,d); k/v: (b,t,g,d) -> (b,s,h,d) in q's dtype, and with
     ``return_lse`` also each row's log-sum-exp (b,s,h) in f32 (natural log;
     what the backward needs).  Without it the kernel writes no LSE.
@@ -89,12 +100,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ignored without ``causal``, as in the reference's kernel.
     ``q_chunk``/``kv_chunk`` are the blocks of the reference's XLA flash
     that meta tensors are costed as; no other device reads them."""
+    q_offset = _offset(q_offset)
     if _on("cpu", q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window,
-                             return_lse=return_lse)
+                             return_lse=return_lse, q_offset=q_offset)
     if _on("meta", q, k, v):
         return attention_blocked_ref(q, k, v, causal, window, q_chunk,
-                                     kv_chunk, return_lse=return_lse)
+                                     kv_chunk, return_lse=return_lse,
+                                     q_offset=q_offset)
     b, s, t, h, g, d = _check("flash_attention_fwd", q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
@@ -106,7 +119,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, s, t, h, g, d,
-            int(q.dtype == torch.bfloat16), int(causal), win,
+            int(q.dtype == torch.bfloat16), int(causal), win, q_offset,
             1.0 / math.sqrt(d), _stream_handle(q))
         build.check(lib, code, "flash_fwd")
         LAUNCHES["flash_fwd"] += 1
@@ -117,19 +130,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
                         window: int | None = None, q_chunk: int = Q_CHUNK,
-                        kv_chunk: int = KV_CHUNK):
+                        kv_chunk: int = KV_CHUNK, q_offset: int = 0):
     """Gradients (dq (b,s,h,d), dk, dv (b,t,g,d)) of the attention whose
     forward gave ``out`` and ``lse`` (:func:`flash_attention_fwd` with
     ``return_lse``), for the output gradient ``dout``; dk and dv sum the
     query heads of each KV group.  Outputs in q's dtype.  ``q_chunk`` and
     ``kv_chunk`` are read only on meta tensors, as in the forward."""
     ins = (q, k, v, out, lse, dout)
+    q_offset = _offset(q_offset)
     if _on("cpu", *ins):
         return attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
-                                 window=window)
+                                 window=window, q_offset=q_offset)
     if _on("meta", *ins):
         return attention_blocked_bwd_ref(q, k, v, out, lse, dout, causal,
-                                         window, q_chunk, kv_chunk)
+                                         window, q_chunk, kv_chunk,
+                                         q_offset=q_offset)
     b, s, t, h, g, d = _check("flash_attention_bwd", q, k, v, out, dout)
     if (lse.device != q.device or lse.dtype != torch.float32
             or lse.shape != (b, s, h)):
@@ -151,8 +166,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, s, t, h, g, d,
-        int(q.dtype == torch.bfloat16), int(causal), win, 1.0 / math.sqrt(d),
-        _stream_handle(q))
+        int(q.dtype == torch.bfloat16), int(causal), win, q_offset,
+        1.0 / math.sqrt(d), _stream_handle(q))
     build.check(lib, code, "flash_bwd")
     LAUNCHES["flash_bwd"] += 1
     return dq, dk, dv

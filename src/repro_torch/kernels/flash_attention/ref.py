@@ -19,6 +19,11 @@ For bf16 inputs P and dS are rounded to bf16 before the products that take
 them (dV = P^T dO, dQ = dS K, dK = dS^T Q): the backward kernel's contract
 (the reference keeps them in f32; ROADMAP, port difference 4).
 
+Every function takes ``q_offset``: q's row ``i`` is position
+``q_offset + i`` for the causal and window masks (a context-parallel block
+of query rows against every key); at 0 each computes what it computed
+before the argument.
+
 Used for CPU tensors, and by ``chip_smoke.py`` to hold the CUDA kernels to
 on the card.
 """
@@ -32,8 +37,15 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
-def _mask(s: int, t: int, window: int | None, device) -> torch.Tensor:
-    i = torch.arange(s, device=device)[:, None]
+def _at(positions: torch.Tensor, q_offset: int) -> torch.Tensor:
+    """``positions`` moved by ``q_offset`` (untouched at 0: no operation
+    for the cost walker to charge)."""
+    return positions + q_offset if q_offset else positions
+
+
+def _mask(s: int, t: int, window: int | None, device,
+          q_offset: int = 0) -> torch.Tensor:
+    i = _at(torch.arange(s, device=device)[:, None], q_offset)
     j = torch.arange(t, device=device)[None, :]
     m = j <= i
     if window is not None:
@@ -41,7 +53,7 @@ def _mask(s: int, t: int, window: int | None, device) -> torch.Tensor:
     return m
 
 
-def _scores(q, k, causal, window):
+def _scores(q, k, causal, window, q_offset=0):
     """Scaled scores (b,g,r,s,t) in f32, masked to NEG_INF, and the mask."""
     b, s, h, d = q.shape
     t, g = k.shape[1], k.shape[2]
@@ -49,15 +61,15 @@ def _scores(q, k, causal, window):
     scores = torch.einsum("bsgrd,btgd->bgrst", qg, k.float()) / math.sqrt(d)
     if not causal:
         return scores, None
-    m = _mask(s, t, window, q.device)
+    m = _mask(s, t, window, q.device, q_offset)
     return torch.where(m, scores, NEG_INF), m
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int | None = None,
-                  return_lse: bool = False):
+                  return_lse: bool = False, q_offset: int = 0):
     b, s, h, d = q.shape
-    scores, _ = _scores(q, k, causal, window)
+    scores, _ = _scores(q, k, causal, window, q_offset)
     mx = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - mx)
     l = p.sum(dim=-1)
@@ -74,13 +86,13 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, lse: torch.Tensor,
                       dout: torch.Tensor, *, causal: bool = True,
-                      window: int | None = None):
+                      window: int | None = None, q_offset: int = 0):
     """(dq, dk, dv) in q's, k's and v's dtypes."""
     b, s, h, d = q.shape
     t, g = k.shape[1], k.shape[2]
     r = h // g
     scale = 1.0 / math.sqrt(d)
-    scores, m = _scores(q, k, causal, window)
+    scores, m = _scores(q, k, causal, window, q_offset)
     lse_g = lse.float().reshape(b, s, g, r).permute(0, 2, 3, 1)
     p = torch.exp(scores - lse_g[..., None])                 # (b,g,r,s,t)
     if m is not None:
@@ -146,14 +158,15 @@ def _strip(causal, window, cq, ck, t_pad):
                  else t_pad)
 
 
-def _kv_strip(kp, vp, qi, cq, strip, t_pad, use_strip):
+def _kv_strip(kp, vp, qi, cq, strip, t_pad, use_strip, q_offset=0):
     """The K/V strip a q chunk reads, its positions and its start."""
     b, _, g, d = kp.shape
     if not use_strip:
         return kp, vp, torch.arange(t_pad, dtype=torch.int32,
                                     device=kp.device), 0
     from repro_torch.core.tracer import dynamic_slice
-    start = torch.clamp(qi * cq + cq - strip, 0, t_pad - strip)
+    start = torch.clamp(_at(qi * cq, q_offset) + cq - strip, 0,
+                        t_pad - strip)
     ks = dynamic_slice(kp, 1, start, strip)
     vs = dynamic_slice(vp, 1, start, strip)
     return ks, vs, start + torch.arange(strip, dtype=torch.int32,
@@ -175,7 +188,7 @@ def _needed(kpj, qpos, window):
 def attention_blocked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int | None = None,
                           q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK,
-                          return_lse: bool = False):
+                          return_lse: bool = False, q_offset: int = 0):
     """The reference's ``_flash_fwd`` (``src/repro/models/flash.py:154-216``)
     without its sharding: an online softmax over ``kv_chunk`` key blocks in
     a scan over ``q_chunk`` query chunks, with the causal block skip as a
@@ -220,9 +233,10 @@ def attention_blocked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     def per_q(c, xs):
         qi, qc = xs
-        qpos = qi * cq + torch.arange(cq, dtype=torch.int32, device=dev)
+        qpos = _at(qi * cq, q_offset) + torch.arange(cq, dtype=torch.int32,
+                                                     device=dev)
         ks, vs, kpos_all, _ = _kv_strip(kp, vp, qi, cq, strip, t_pad,
-                                        use_strip)
+                                        use_strip, q_offset)
         kc, vc = _chunk_kv(ks, ck), _chunk_kv(vs, ck)
         kpos = kpos_all.reshape(strip // ck, ck)
 
@@ -259,7 +273,7 @@ def attention_blocked_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                               lse: torch.Tensor, dout: torch.Tensor,
                               causal: bool = True, window: int | None = None,
                               q_chunk: int = Q_CHUNK,
-                              kv_chunk: int = KV_CHUNK):
+                              kv_chunk: int = KV_CHUNK, q_offset: int = 0):
     """The reference's ``_flash_bwd`` (``src/repro/models/flash.py:219-
     326``) without its sharding: per q chunk, a scan over the key blocks
     that recomputes P from the LSE and accumulates dq, with dk and dv summed
@@ -295,9 +309,10 @@ def attention_blocked_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     def per_q(carry, xs):
         dk_acc, dv_acc = carry
         qi, qc, doc, lsec, dvc = xs
-        qpos = qi * cq + torch.arange(cq, dtype=torch.int32, device=dev)
+        qpos = _at(qi * cq, q_offset) + torch.arange(cq, dtype=torch.int32,
+                                                     device=dev)
         ks, vs, kpos_all, start = _kv_strip(kp, vp, qi, cq, strip, t_pad,
-                                            use_strip)
+                                            use_strip, q_offset)
         kc, vc = _chunk_kv(ks, ck), _chunk_kv(vs, ck)
         kposc = kpos_all.reshape(strip // ck, ck)
 

@@ -19,6 +19,17 @@ over the stacked leaves, and its ``nothing_saveable`` remat is
 ``torch.utils.checkpoint`` of each layer, as in ``transformer.py``.  The
 decode step writes the self-attention caches in place; the cross K/V
 cache, filled by the prefill, is read only.
+
+On a mesh (a ``DeviceMesh``; :mod:`repro_torch.sharding.spmd`) every
+function takes ``mesh`` last, as the reference's, and runs SPMD on this
+process's batch rows: the encoder's unmasked self-attention, the
+decoder's causal self-attention and its cross-attention in the
+reference's attention mode (``models/attention.py``), the MLPs column and
+row parallel, the vocab split over ``model``.  The encoder states are
+this process's rows, every frame, on each process of a ``model`` group.
+The decode caches follow ``cache_specs``: the cross K/V's frames are
+split over ``model`` where the axis divides them (the config's
+``n_audio_frames``), else whole on each process.
 """
 from __future__ import annotations
 
@@ -34,7 +45,7 @@ from repro_torch.models.layers import (
     Param, chunked_loss, embed_lookup, embed_params, mlp_apply, mlp_params,
     rms_norm, torch_dtype, unembed,
 )
-from repro_torch.models.transformer import _stack, _write_back
+from repro_torch.models.transformer import _norm_w, _stack, _write_back
 from repro_torch.sharding import spmd
 
 
@@ -94,64 +105,73 @@ def _layers(cfg: ArchConfig, body, x, stack, n: int):
     return scan_loop(n, step, x, xs=stack)
 
 
-def _attn(cfg: ArchConfig, p: dict, h: torch.Tensor, positions, causal):
+def _attn(cfg: ArchConfig, p: dict, h: torch.Tensor, positions, causal,
+          mesh=None):
     return A.attention(p, h, positions, n_heads=cfg.n_heads,
                        n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                       theta=cfg.rope_theta, causal=causal)
+                       theta=cfg.rope_theta, causal=causal, mesh=mesh)
 
 
-def _cross(cfg: ArchConfig, p: dict, h: torch.Tensor, enc, kv=None):
+def _cross(cfg: ArchConfig, p: dict, h: torch.Tensor, enc, kv=None,
+           mesh=None):
     return A.cross_attention(p, h, enc, n_heads=cfg.n_heads,
-                             n_kv=cfg.n_kv_heads, head_dim=cfg.hd, kv=kv)
+                             n_kv=cfg.n_kv_heads, head_dim=cfg.hd, kv=kv,
+                             mesh=mesh, kv_len=cfg.n_audio_frames)
 
 
-def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig
+def _norm(mesh, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return rms_norm(h, _norm_w(mesh, w))
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig, mesh=None
            ) -> torch.Tensor:
     """frames: precomputed (b, F, d) embeddings -> encoder states (in the
     config's dtype, which the frames are cast to)."""
-    x = rms_norm(frames.to(torch_dtype(cfg.dtype)), params["frame_norm"])
+    mesh = spmd.context(mesh, cfg)
+    x = _norm(mesh, frames.to(torch_dtype(cfg.dtype)), params["frame_norm"])
     positions = _positions(x)
 
     def body(h, p):
-        mix, _ = _attn(cfg, p["attn"], rms_norm(h, p["ln1"]), positions,
-                       causal=False)
+        mix, _ = _attn(cfg, p["attn"], _norm(mesh, h, p["ln1"]), positions,
+                       causal=False, mesh=mesh)
         h = h + mix
-        return h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"]))
+        return h + mlp_apply(p["mlp"], _norm(mesh, h, p["ln2"]), mesh)
 
     x = _layers(cfg, body, x, params["encoder"], cfg.enc_layers)
-    return rms_norm(x, params["enc_norm"])
+    return _norm(mesh, x, params["enc_norm"])
 
 
-def _embed(params: dict, tokens: torch.Tensor, cfg: ArchConfig):
-    x = embed_lookup(params["embed"], tokens)
+def _embed(params: dict, tokens: torch.Tensor, cfg: ArchConfig, mesh=None):
+    x = embed_lookup(params["embed"], tokens, mesh)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
 def _decoder_forward(params: dict, x: torch.Tensor, enc: torch.Tensor,
-                     cfg: ArchConfig) -> torch.Tensor:
+                     cfg: ArchConfig, mesh=None) -> torch.Tensor:
     positions = _positions(x)
 
     def body(h, p):
-        mix, _ = _attn(cfg, p["attn"], rms_norm(h, p["ln1"]), positions,
-                       causal=True)
+        mix, _ = _attn(cfg, p["attn"], _norm(mesh, h, p["ln1"]), positions,
+                       causal=True, mesh=mesh)
         h = h + mix
-        h = h + _cross(cfg, p["xattn"], rms_norm(h, p["ln_x"]), enc)
-        return h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"]))
+        h = h + _cross(cfg, p["xattn"], _norm(mesh, h, p["ln_x"]), enc,
+                       mesh=mesh)
+        return h + mlp_apply(p["mlp"], _norm(mesh, h, p["ln2"]), mesh)
 
     x = _layers(cfg, body, x, params["decoder"], cfg.n_layers)
-    return rms_norm(x, params["final_norm"])
+    return _norm(mesh, x, params["final_norm"])
 
 
 def encdec_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
                 ) -> torch.Tensor:
     """Decoder CE loss: batch = {tokens, labels (b, s), audio_frames (b, F,
-    d)}.  On a mesh only where the rules split no parameter (this
-    process's rows); a sharded mesh raises (item 12)."""
-    spmd.context(mesh, cfg)
-    enc = encode(params, batch["audio_frames"], cfg)
-    x = _embed(params, batch["tokens"], cfg)
-    h = _decoder_forward(params, x, enc, cfg)
-    return chunked_loss(h, params["embed"], batch["labels"], cfg.loss_chunk)
+    d)}.  On a mesh, the mean over this process's rows."""
+    mesh = spmd.context(mesh, cfg)
+    enc = encode(params, batch["audio_frames"], cfg, mesh)
+    x = _embed(params, batch["tokens"], cfg, mesh)
+    h = _decoder_forward(params, x, enc, cfg, mesh)
+    return chunked_loss(h, params["embed"], batch["labels"], cfg.loss_chunk,
+                        mesh)
 
 
 # -- prefill / decode ---------------------------------------------------------
@@ -161,27 +181,31 @@ def encdec_prefill(params: dict, batch: dict, cfg: ArchConfig, mesh=None):
     """Encode the audio and prefill the decoder tokens -> (last-position
     logits (b, vocab), cache).  The cache holds each decoder layer's self
     K/V and its cross K/V of the encoder states, in ``cfg.dtype``, stacked
-    on a leading layer dim (the reference's scan ys).  ``mesh``: as
-    :func:`encdec_loss`."""
-    spmd.context(mesh, cfg)
-    enc = encode(params, batch["audio_frames"], cfg)
-    x = _embed(params, batch["tokens"], cfg)
+    on a leading layer dim (the reference's scan ys).  On a mesh the
+    logits are this process's vocab block and the K/V in the prefill
+    cache's layout (``attention.PREFILL_KV_AXES``)."""
+    mesh = spmd.context(mesh, cfg)
+    enc = encode(params, batch["audio_frames"], cfg, mesh)
+    x = _embed(params, batch["tokens"], cfg, mesh)
     positions = _positions(x)
     dt = torch_dtype(cfg.dtype)
+    b = x.shape[0]
 
     def body(h, p):
-        mix, (k, v) = _attn(cfg, p["attn"], rms_norm(h, p["ln1"]),
-                            positions, causal=True)
+        mix, (k, v) = _attn(cfg, p["attn"], _norm(mesh, h, p["ln1"]),
+                            positions, causal=True, mesh=mesh)
+        k, v = A.cache_rows(mesh, k, b), A.cache_rows(mesh, v, b)
         h = h + mix
-        h = h + _cross(cfg, p["xattn"], rms_norm(h, p["ln_x"]), enc)
-        ck, cv = A.cross_kv(p["xattn"], enc, cfg.n_kv_heads, cfg.hd)
-        h = h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"]))
+        h = h + _cross(cfg, p["xattn"], _norm(mesh, h, p["ln_x"]), enc,
+                       mesh=mesh)
+        ck, cv = A.cross_kv(p["xattn"], enc, cfg.n_kv_heads, cfg.hd, mesh)
+        h = h + mlp_apply(p["mlp"], _norm(mesh, h, p["ln2"]), mesh)
         return h, (A.KVCache(k.to(dt), v.to(dt)), ck.to(dt), cv.to(dt))
 
     x, (self_cache, cross_k, cross_v) = scan_loop(
         cfg.n_layers, body, x, xs=params["decoder"], stack_ys=True)
-    x = rms_norm(x, params["final_norm"])
-    logits = unembed(x[:, -1:], params["embed"])[:, 0]
+    x = _norm(mesh, x, params["final_norm"])
+    logits = unembed(x[:, -1:], params["embed"], mesh)[:, 0]
     return logits, {"self": self_cache, "cross_k": cross_k,
                     "cross_v": cross_v}
 
@@ -203,25 +227,26 @@ def init_encdec_cache(cfg: ArchConfig, batch: int, seq_len: int,
 def encdec_decode_step(params: dict, cache: dict, batch: dict, pos: int,
                        cfg: ArchConfig, mesh=None):
     """One new token against the cache: (logits (b, vocab), cache), the
-    self caches updated in place.  ``mesh``: as :func:`encdec_loss`."""
-    spmd.context(mesh, cfg)
-    x = _embed(params, batch["tokens"], cfg)
+    self caches updated in place.  On a mesh the cache is this process's
+    block (``model.init_cache(mesh=)``) and the logits its vocab block."""
+    mesh = spmd.context(mesh, cfg)
+    x = _embed(params, batch["tokens"], cfg, mesh)
 
     def body(h, pc):
         p, sc, ck, cv = pc
-        mix, new = A.decode_attention(p["attn"], rms_norm(h, p["ln1"]), sc,
-                                      pos, n_heads=cfg.n_heads,
+        mix, new = A.decode_attention(p["attn"], _norm(mesh, h, p["ln1"]),
+                                      sc, pos, n_heads=cfg.n_heads,
                                       n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                                      theta=cfg.rope_theta)
+                                      theta=cfg.rope_theta, mesh=mesh)
         _write_back(sc, new)
         h = h + mix
-        h = h + _cross(cfg, p["xattn"], rms_norm(h, p["ln_x"]), None,
-                       kv=(ck, cv))
-        return h + mlp_apply(p["mlp"], rms_norm(h, p["ln2"]))
+        h = h + _cross(cfg, p["xattn"], _norm(mesh, h, p["ln_x"]), None,
+                       kv=(ck, cv), mesh=mesh)
+        return h + mlp_apply(p["mlp"], _norm(mesh, h, p["ln2"]), mesh)
 
     x = scan_loop(cfg.n_layers, body, x,
                   xs=(params["decoder"], cache["self"], cache["cross_k"],
                       cache["cross_v"]))
-    x = rms_norm(x, params["final_norm"])
-    logits = unembed(x[:, 0:1], params["embed"])[:, 0]
+    x = _norm(mesh, x, params["final_norm"])
+    logits = unembed(x[:, 0:1], params["embed"], mesh)[:, 0]
     return logits, cache

@@ -173,16 +173,41 @@ def cache_logical_axes(cfg: ArchConfig, batch: int, seq_len: int,
     return walk(abstract_cache(cfg, batch, seq_len, n_frames))
 
 
+#: the cross-attention caches' keys (the VLM's ``x`` layers, the
+#: encoder-decoder): read only, whole where ``model`` does not divide them
+CROSS_CACHE_KEYS = ("xk", "xv", "cross_k", "cross_v")
+
+
+def _map_cache(fn, tree, axes, cross: bool = False):
+    """``fn(leaf, axes, cross)`` over a cache and its logical axes, ``cross``
+    True under a cross-attention key."""
+    if isinstance(tree, dict):
+        return {k: _map_cache(fn, v, axes[k], cross or k in CROSS_CACHE_KEYS)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        out = [_map_cache(fn, v, a, cross) for v, a in zip(tree, axes)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree, axes, cross)
+
+
 def _local_cache(cfg, batch, seq_len, dev, n_frames, mesh):
     """:func:`init_cache`'s blocks on a mesh; raises where a buffer would
-    be split in a way the decode step does not execute."""
+    be split in a way the decode step does not execute (a self-attention
+    cache whose length the ``model`` axis does not divide; an
+    encoder-decoder's cross cache of other than the config's frames)."""
     from repro_torch.configs.registry import rules_for
     from repro_torch.sharding import spmd
     from repro_torch.sharding.partition import axis_sizes, block_of
     ctx = spmd.context(mesh, cfg)
     rules, coord, sizes = rules_for(cfg), mesh_coord(mesh), axis_sizes(mesh)
+    if ctx is not None and ctx.tp > 1 and cfg.family == "encdec" and \
+            n_frames and n_frames != cfg.n_audio_frames:
+        raise NotImplementedError(
+            f"{cfg.name}: a cross cache of {n_frames} frames on a sharded "
+            f"mesh (the decode step reads the config's {cfg.n_audio_frames};"
+            " ROADMAP, queue 1, item 12)")
 
-    def one(meta, axes):
+    def one(meta, axes, cross):
         spec = sharding_for_shape(tuple(meta.shape), axes, mesh, rules)
         shape = list(meta.shape)
         for dim, entry in enumerate(spec):
@@ -195,7 +220,8 @@ def _local_cache(cfg, batch, seq_len, dev, n_frames, mesh):
                     f"{cfg.name}: a decode cache of {tuple(meta.shape)} "
                     f"split {spec} on {sizes} (item 12)")
             shape[dim] //= block_of(entry, mesh, coord)[1]
-        if ctx is not None and ctx.tp > 1 and "kv_seq" in axes:
+        if ctx is not None and ctx.tp > 1 and "kv_seq" in axes and \
+                not cross:
             dim = axes.index("kv_seq")
             if "model" not in entry_axes(spec[dim] if dim < len(spec)
                                          else None):
@@ -206,5 +232,5 @@ def _local_cache(cfg, batch, seq_len, dev, n_frames, mesh):
                     "it divides (ROADMAP, queue 1, item 12)")
         return torch.zeros(shape, dtype=meta.dtype, device=dev)
 
-    return tree_map(one, abstract_cache(cfg, batch, seq_len, n_frames),
-                    cache_logical_axes(cfg, batch, seq_len, n_frames))
+    return _map_cache(one, abstract_cache(cfg, batch, seq_len, n_frames),
+                      cache_logical_axes(cfg, batch, seq_len, n_frames))

@@ -2,11 +2,26 @@
 data shard, batched expert SwiGLU.
 
 The port of ``src/repro/models/moe.py`` (``moe_params``, ``moe_apply``)
-without a mesh: one data shard (``n_sh = 1``), in the reference's
-``(n_sh, tl, d)`` layout.  On a mesh that splits its parameters a MoE
-layer raises: experts on ``model``, Mixtral's ``expert_ffn`` and expert
-routing across a data mesh (global capacity and aux loss, added as shards
-of this layout) wait for ROADMAP's queue 1, item 12.
+in the reference's ``(n_sh, tl, d)`` layout: without a mesh one data
+shard (``n_sh = 1``); on a mesh (an :class:`~repro_torch.sharding.spmd.
+Spmd` context) the reference's ``_data_shards`` of the global batch (pod x
+data, halved until it divides it), of which this process's rows hold
+``n_sh / (the batch's blocks)``.  Each shard routes its own tokens with
+its own capacity, as the reference's per-shard dispatch does; only the
+aux loss's means ``me`` and ``ce`` span every shard, their sums
+all-reduced over the axes that split the rows both ways
+(``Spmd.reduce_partial``: the data-parallel mean of the gradients then
+gives each process's rows the reference's aux gradient, not 1/n of it).
+The router is replicated over ``model``, so every process of a ``model``
+group routes the same tokens the same way.  Where the experts split over
+``model`` (DeepSeek's 64, Jamba's 16) a process dispatches to its own
+experts' slots only, and where each expert's FFN splits (Mixtral's
+``("expert_ffn", "model")`` override) it runs its columns of every
+expert; either way its output is a partial sum, which is all-reduced over
+``model`` once, with the shared experts' row-parallel output.  The
+partial region's inputs (the tokens and the gates) go through
+``Spmd.copy``, so their gradients are summed over ``model``; the router's
+own product stays whole on every process.
 It computes what the reference computes, with three points where a
 literal translation of the jnp would not:
 
@@ -30,6 +45,8 @@ literal translation of the jnp would not:
   the kept picks to their own (distinct) slots and then states the
   clobber: slot ``cap - 1`` of every expert with more than ``cap`` picks
   is emptied.  No write here depends on the order of duplicate indices.
+  The dispatch table is built whole on every process, so an emptied slot
+  is empty for whichever process owns that expert.
 
 Nothing has a data-dependent shape and nothing syncs with the host, so the
 cost walker runs it on meta tensors and a decode step stays asynchronous.
@@ -73,12 +90,15 @@ def capacity(tokens: int, top_k: int, n_experts: int,
     return int(max(1, round(tokens * top_k / n_experts * capacity_factor)))
 
 
-def route(p: dict, xf: torch.Tensor, k: int, capacity_factor: float):
+def route(p: dict, xf: torch.Tensor, k: int, capacity_factor: float,
+          mean=None):
     """The routing of ``moe_apply`` on ``xf`` (n_sh, tl, d): a dict with the
     gates, the picks, the aux loss, ``cap``, the dispatch (``tok``, ``ok``:
     (n_sh, e·cap)), the inverse map (``inv_slot``, ``inv_ok``: (n_sh,
     tl·k), in the picks' original order) and ``emptied`` (n_sh, e·cap):
-    the last slots of the over-full experts, which the clobber empties."""
+    the last slots of the over-full experts, which the clobber empties.
+    ``mean(t)``: the aux loss's mean of (n_sh, tl, e) over its first two
+    dims (on a mesh, over every process's shards too)."""
     n_sh, tl, _ = xf.shape
     e = p["router"].shape[-1]
     logits = (xf @ p["router"].to(xf.dtype)).float()
@@ -88,8 +108,10 @@ def route(p: dict, xf: torch.Tensor, k: int, capacity_factor: float):
         gate_vals.sum(dim=-1, keepdim=True), 1e-9)
 
     # Switch-style aux loss (global means)
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(expert_idx[..., 0], e).float().mean(dim=(0, 1))
+    if mean is None:
+        mean = lambda t: t.mean(dim=(0, 1))  # noqa: E731
+    me = mean(probs)
+    ce = mean(F.one_hot(expert_idx[..., 0], e).float())
     aux = e * (me * ce).sum()
 
     cap = capacity(tl, k, e, capacity_factor)
@@ -149,35 +171,110 @@ def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def moe_apply(p: dict, x: torch.Tensor, top_k: int,
-              capacity_factor: float = 1.25):
-    """x: (b, s, d) -> (y: (b, s, d), aux load-balance loss)."""
+              capacity_factor: float = 1.25, mesh=None):
+    """x: (b, s, d) -> (y: (b, s, d), aux load-balance loss).  On a mesh,
+    ``x`` is this process's rows (module docstring)."""
     b, s, d = x.shape
     e = p["router"].shape[-1]
-    n_sh = 1
+    if mesh is None:
+        n_sh, mean = 1, None
+        router = p["router"]
+    else:
+        n_sh, mean = _shards(mesh, b, s)
+        router = mesh.unshard(p["router"], (d, e), ("embed", None))
     tl = b * s // n_sh
     xf = x.reshape(n_sh, tl, d)
-    r = route(p, xf, top_k, capacity_factor)
+    r = route(dict(p, router=router), xf, top_k, capacity_factor, mean)
     cap = r["cap"]
+    f = p["wi"].shape[-1] if mesh is None else mesh.cfg.d_ff_expert
+    wi, wg, wo, lo, el = _experts(p, mesh, e, d, f)
+    partial = mesh is not None and (el < e or wi.shape[-1] < f)
+    xin = mesh.copy(xf) if partial else xf
+    gates = mesh.copy(r["gates"]) if partial else r["gates"]
 
-    # gather tokens to (n_sh, e, cap, d) slots
-    xe = _rows(xf, r["tok"])
-    xe = xe * r["ok"][..., None].to(xe.dtype)
-    xe = xe.reshape(n_sh, e, cap, d)
+    # gather tokens to (n_sh, el, cap, d) slots of this process's experts
+    tok, slot_ok = r["tok"], r["ok"]
+    if el < e:
+        tok = tok[:, lo * cap:(lo + el) * cap]
+        slot_ok = slot_ok[:, lo * cap:(lo + el) * cap]
+    xe = _rows(xin, tok)
+    xe = xe * slot_ok[..., None].to(xe.dtype)
+    xe = xe.reshape(n_sh, el, cap, d)
 
     # expert SwiGLU, batched over (expert, slot)
-    hg = torch.einsum("xecd,edf->xecf", xe, p["wg"])
-    hi = torch.einsum("xecd,edf->xecf", xe, p["wi"])
+    hg = torch.einsum("xecd,edf->xecf", xe, wg)
+    hi = torch.einsum("xecd,edf->xecf", xe, wi)
     h = F.silu(hg) * hi
-    ye = torch.einsum("xecf,efd->xecd", h, p["wo"])
+    ye = torch.einsum("xecf,efd->xecd", h, wo)
 
     # combine: gather each token's top-k slots and weight them by the gate
-    yflat = ye.reshape(n_sh, e * cap, d).to(x.dtype)
-    picked = _rows(yflat, r["inv_slot"])
-    w = (r["gates"] * r["inv_ok"]).to(x.dtype)               # (n_sh, tl·k)
+    # (on a mesh, the picks that landed on this process's experts)
+    yflat = ye.reshape(n_sh, el * cap, d).to(x.dtype)
+    inv, ok = r["inv_slot"], r["inv_ok"]
+    if el < e:
+        inv = inv - lo * cap
+        here = (inv >= 0) & (inv < el * cap)
+        inv, ok = torch.where(here, inv, 0), ok & here
+    picked = _rows(yflat, inv)
+    w = (gates * ok).to(x.dtype)                             # (n_sh, tl·k)
     y = (picked * w[..., None]).reshape(n_sh, tl, top_k, d).sum(dim=2)
 
-    if "shared" in p:
-        sp = p["shared"]
-        hs = F.silu(xf @ sp["wg"]) * (xf @ sp["wi"])
-        y = y + (hs @ sp["wo"]).to(y.dtype)
+    if "shared" in p:           # one reduce for both partial sums
+        ys, s_partial = _shared(p["shared"], xf, mesh)
+        if s_partial and not partial:
+            ys = mesh.reduce(ys)
+        elif partial and not s_partial:
+            y, partial = mesh.reduce(y), False
+        y = y + ys.to(y.dtype)
+    if partial:
+        y = mesh.reduce(y)
     return y.reshape(b, s, d), r["aux"]
+
+
+def _shards(mesh, b: int, s: int):
+    """(this process's data shards, the aux loss's mean) on a mesh: the
+    reference's ``_data_shards`` of the global batch, dealt over the
+    batch's blocks, and the means' sums all-reduced over the axes that
+    split the rows."""
+    from repro_torch.sharding.partition import SHARDED_EXECUTION
+    blocks = mesh.row_blocks()
+    n_all = mesh.data_shards(mesh.global_batch(b))
+    if n_all % blocks:
+        raise NotImplementedError(
+            f"{n_all} data shards of a batch dealt in {blocks} blocks "
+            f"{SHARDED_EXECUTION}")
+    axes = mesh.batch_axes()
+    total = n_all * (b * s // (n_all // blocks))
+
+    def mean(t):
+        return mesh.reduce_partial(t.sum(dim=(0, 1)), axes) / total
+
+    return n_all // blocks, mean
+
+
+def _experts(p: dict, mesh, e: int, d: int, f: int):
+    """The expert weights this process runs (FSDP splits gathered), the
+    first expert's index and their number."""
+    if mesh is None:
+        return p["wi"], p["wg"], p["wo"], 0, e
+    axes_in = ("experts", "embed", "expert_ffn")
+    wi = mesh.unshard(p["wi"], (e, d, f), axes_in)
+    wg = mesh.unshard(p["wg"], (e, d, f), axes_in)
+    wo = mesh.unshard(p["wo"], (e, f, d), ("experts", "expert_ffn", "embed"))
+    el = wi.shape[0]
+    return wi, wg, wo, (mesh.r * el if el < e else 0), el
+
+
+def _shared(sp: dict, xf: torch.Tensor, mesh):
+    """The shared experts' output, and whether it is a partial sum over
+    ``model`` (their FFN columns split, Megatron's column/row parallel)."""
+    if mesh is None:
+        hs = F.silu(xf @ sp["wg"]) * (xf @ sp["wi"])
+        return hs @ sp["wo"], False
+    d, ff = xf.shape[-1], mesh.cfg.d_ff_expert * mesh.cfg.n_shared_experts
+    wi = mesh.unshard(sp["wi"], (d, ff), ("embed", "ffn"))
+    wg = mesh.unshard(sp["wg"], (d, ff), ("embed", "ffn"))
+    wo = mesh.unshard(sp["wo"], (ff, d), ("ffn", "embed"))
+    partial = wi.shape[1] < ff
+    x = mesh.copy(xf) if partial else xf
+    return (F.silu(x @ wg) * (x @ wi)) @ wo, partial

@@ -30,11 +30,14 @@ The entry points take the reference's ``mesh``: a ``DeviceMesh``
 The parameters, the batch rows and the caches are this process's blocks
 (``partition.shard_params``, the batch's ``("batch", ...)`` spec,
 ``model.init_cache(mesh=)``); prefill's logits are its vocab block.  Where
-the config's rules split parameters the layers run sharded
-(:mod:`repro_torch.sharding.spmd`): the dense and SSM families, on any
-``data × model`` (and ``pod``) mesh whose ``model`` axis divides their
-heads; the kinds ``s``/``x`` and MoE layers raise there (ROADMAP, queue 1,
-item 12).
+the config's rules split parameters, or experts route across a data mesh,
+the layers run on the mesh's SPMD context
+(:mod:`repro_torch.sharding.spmd`): every family and layer kind, on any
+``data × model`` (and ``pod``) mesh, attention in the reference's mode
+(``models/attention.py``) and MoE layers with their experts or their
+expert FFN split over ``model`` and their routing per data shard
+(``models/moe.py``).  The vision states are this process's batch rows,
+every patch (``("batch", "patches", "embed")``).
 """
 from __future__ import annotations
 
@@ -190,7 +193,7 @@ def embed_inputs(params: dict, batch: dict, cfg: ArchConfig, mesh=None
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
-def vision_states(params: dict, batch: dict, cfg: ArchConfig):
+def vision_states(params: dict, batch: dict, cfg: ArchConfig, mesh=None):
     """The VLM's normed vision states (b, n_vision_tokens, d) from the
     batch's ``vision_embeds``, or None (no vision tokens, or none given).
     The embeddings are cast to the config's dtype first, as the
@@ -200,22 +203,24 @@ def vision_states(params: dict, batch: dict, cfg: ArchConfig):
     if not cfg.n_vision_tokens or "vision_embeds" not in batch:
         return None
     v = batch["vision_embeds"].to(torch_dtype(cfg.dtype))
-    return rms_norm(v, params["vision_norm"])
+    return rms_norm(v, _norm_w(mesh, params["vision_norm"]))
 
 
-def _cross(cfg: ArchConfig, p: dict, x: torch.Tensor, vision, kv=None):
+def _cross(cfg: ArchConfig, p: dict, x: torch.Tensor, vision, kv=None,
+           mesh=None):
     """An ``x`` layer's cross-attention half: x + its cross-attention to
     the vision states (or to the cached ``kv``)."""
-    hx = rms_norm(x, p["ln_x"])
+    hx = rms_norm(x, _norm_w(mesh, p["ln_x"]))
     return x + A.cross_attention(p["xattn"], hx, vision, n_heads=cfg.n_heads,
-                                 n_kv=cfg.n_kv_heads, head_dim=cfg.hd, kv=kv)
+                                 n_kv=cfg.n_kv_heads, head_dim=cfg.hd, kv=kv,
+                                 mesh=mesh, kv_len=cfg.n_vision_tokens)
 
 
 def _ffn(cfg: ArchConfig, li: int, p: dict, x: torch.Tensor, mesh=None):
     """The layer's feed-forward half: (x, MoE aux loss or None)."""
     if cfg.is_moe_layer(li):
-        ff, aux = M.moe_apply(p["moe"], rms_norm(x, p["ln2"]), cfg.top_k,
-                              cfg.capacity_factor)
+        ff, aux = M.moe_apply(p["moe"], rms_norm(x, _norm_w(mesh, p["ln2"])),
+                              cfg.top_k, cfg.capacity_factor, mesh)
         return x + ff, aux
     if cfg.d_ff:
         x = x + mlp_apply(p["mlp"], rms_norm(x, _norm_w(mesh, p["ln2"])),
@@ -241,7 +246,7 @@ def _apply_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
                              mesh=mesh)
     x = x + mix
     if kind == "x":
-        x = _cross(cfg, p, x, vision)
+        x = _cross(cfg, p, x, vision, mesh=mesh)
     return _ffn(cfg, li, p, x, mesh)
 
 
@@ -296,7 +301,7 @@ def lm_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
     (the same on each process of a ``model`` group)."""
     mesh = spmd.context(mesh, cfg)
     x = embed_inputs(params, batch, cfg, mesh)
-    h, aux = backbone(params, x, cfg, vision_states(params, batch, cfg),
+    h, aux = backbone(params, x, cfg, vision_states(params, batch, cfg, mesh),
                       mesh)
     loss = chunked_loss(h, params["embed"], batch["labels"], cfg.loss_chunk,
                         mesh)
@@ -359,7 +364,7 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig, mesh=None):
     n_units = cfg.n_layers // u
     kinds = cfg.layer_kinds()
     x = embed_inputs(params, batch, cfg, mesh)
-    vision = vision_states(params, batch, cfg)
+    vision = vision_states(params, batch, cfg, mesh)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     dt = torch_dtype(cfg.dtype)
@@ -380,6 +385,7 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig, mesh=None):
                                       n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
                                       theta=cfg.rope_theta, window=win,
                                       causal=True, mesh=mesh)
+            k, v = A.cache_rows(mesh, k, b), A.cache_rows(mesh, v, b)
             cl = _cache_len(cfg, kind, s)
             if cl < s:
                 # ring layout: position p lives at slot p % window
@@ -388,8 +394,9 @@ def lm_prefill(params: dict, batch: dict, cfg: ArchConfig, mesh=None):
             cache = A.KVCache(k.to(dt), v.to(dt))
         h = h + mix
         if kind == "x":
-            h = _cross(cfg, p, h, vision)
-            ck, cv = A.cross_kv(p["xattn"], vision, cfg.n_kv_heads, cfg.hd)
+            h = _cross(cfg, p, h, vision, mesh=mesh)
+            ck, cv = A.cross_kv(p["xattn"], vision, cfg.n_kv_heads, cfg.hd,
+                                mesh)
             cache = {"self": cache, "xk": ck.to(dt), "xv": cv.to(dt)}
         return _ffn(cfg, li, p, h, mesh)[0], cache
 
@@ -424,7 +431,7 @@ def _decode_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
         mix, selfc = A.decode_attention(p["attn"], h, c["self"], pos,
                                         n_heads=cfg.n_heads,
                                         n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-                                        theta=cfg.rope_theta)
+                                        theta=cfg.rope_theta, mesh=mesh)
         new = {"self": selfc, "xk": c["xk"], "xv": c["xv"]}
     else:
         win = cfg.window if kind == "l" and cfg.window else None
@@ -436,7 +443,7 @@ def _decode_layer(cfg: ArchConfig, kind: str, li: int, p: dict,
     _write_back(c, new)
     x = x + mix
     if kind == "x":
-        x = _cross(cfg, p, x, None, kv=(c["xk"], c["xv"]))
+        x = _cross(cfg, p, x, None, kv=(c["xk"], c["xv"]), mesh=mesh)
     return _ffn(cfg, li, p, x, mesh)[0]
 
 

@@ -10,10 +10,13 @@ engine runs on the CUDA card unless the caller asks for another device.
 process of the mesh builds the engine with its blocks of the parameters
 (``model.init_params(mesh=)``) and calls :meth:`ServeEngine.generate` with
 the same prompts.  Each process serves its rows of the batch (the
-``batch`` spec), prefill's head-split K/V are re-homed into the
-sequence-split decode buffers (``registry.cache_specs``), the greedy token
+``batch`` spec, declared to the model's SPMD context, which reads the
+global batch from it), prefill's K/V are re-homed into the decode buffers
+as ``registry.cache_specs`` lays them out (sequence-split, or whole where
+the ``model`` axis does not divide a cross cache), the greedy token
 is the argmax over the vocab blocks with ``jnp.argmax``'s tie rule (the
 lowest index wins), and every process returns the whole batch's tokens.
+Every family runs so.
 """
 from __future__ import annotations
 
@@ -29,11 +32,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import torch_dtype, tree_map
 from repro_torch.models.model import (
-    build_forward, cache_logical_axes, init_cache,
+    abstract_cache, build_forward, cache_logical_axes, init_cache,
 )
 from repro_torch.sharding import spmd
 from repro_torch.sharding.partition import (
-    gather_full, local_shard, sharding_for_shape,
+    entry_axes, gather_full, local_shard, sharding_for_shape,
 )
 
 
@@ -113,6 +116,13 @@ class ServeEngine:
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, n_new: int) -> GenResult:
         """prompts: (b, prompt_len) int32 (already padded to a bucket)."""
+        if self.mesh is None or self.ctx is None:
+            return self._generate(prompts, n_new)
+        spec = self._spec(np.shape(prompts))
+        with self.ctx.rows(entry_axes(spec[0] if spec else None)):
+            return self._generate(prompts, n_new)
+
+    def _generate(self, prompts: np.ndarray, n_new: int) -> GenResult:
         b, plen = prompts.shape
         if plen + n_new > self.max_len:
             raise ValueError(f"prompt {plen} + {n_new} new tokens exceeds the "
@@ -158,8 +168,8 @@ class ServeEngine:
         self.timers._acc["decode"] += t2 - t1
         gen = np.stack(out, axis=1)
         if self.mesh is not None:      # every process: the whole batch's
-            gen = gather_full(torch.from_numpy(gen), self._spec(gen.shape),
-                              self.mesh).numpy()
+            gen = gather_full(torch.from_numpy(gen), self._spec(
+                (b, gen.shape[1])), self.mesh).numpy()
         return GenResult(tokens=gen, prefill_sec=t1 - t0, decode_sec=t2 - t1,
                          tokens_per_sec=gen.size / max(t2 - t1, 1e-9))
 
@@ -172,8 +182,9 @@ class ServeEngine:
                           *(() if self.mesh is None else (self.mesh,)))
         if self.mesh is None:
             return tree_map(self._embed_cache, full, pre_cache)
-        return tree_map(self._rehome, full, pre_cache, cache_logical_axes(
-            self.cfg, batch_size, self.max_len, self.cfg.n_audio_frames))
+        shape = (self.cfg, batch_size, self.max_len, self.cfg.n_audio_frames)
+        return tree_map(self._rehome, full, pre_cache,
+                        cache_logical_axes(*shape), abstract_cache(*shape))
 
     def _spec(self, shape):
         """The spec of a (batch, ...) array: its rows over the data axes."""
@@ -204,18 +215,23 @@ class ServeEngine:
         first = (vals == vals.amax(dim=0, keepdim=True)).int().argmax(dim=0)
         return torch.gather(idxs, 0, first[None])[0].to(torch.int32)
 
-    def _rehome(self, full: torch.Tensor, pre: torch.Tensor, axes
-                ) -> torch.Tensor:
+    def _rehome(self, full: torch.Tensor, pre: torch.Tensor, axes,
+                whole: torch.Tensor) -> torch.Tensor:
         """:meth:`_embed_cache` on a mesh: prefill's K/V (this process's kv
         heads, every position) into this process's decode block (every kv
-        head, its positions); an SSM leaf has one layout in both."""
+        head; its positions, where the leaf's spec, from its global shape
+        ``whole``, splits them over ``model``); an SSM leaf has one layout
+        in both."""
         if "kv_seq" not in axes:
             return pre.to(full.dtype)
         heads, seq = axes.index("kv_heads"), axes.index("kv_seq")
         if pre.shape[heads] != full.shape[heads]:
             pre = self.ctx.all_gather(pre, heads)
         tl = full.shape[seq]
-        lo = tl * (self.ctx.r if self.ctx is not None else 0)
+        spec = sharding_for_shape(tuple(whole.shape), axes, self.mesh,
+                                  self.rules)
+        split = "model" in entry_axes(spec[seq] if seq < len(spec) else None)
+        lo = tl * self.ctx.r if self.ctx is not None and split else 0
         n = max(0, min(tl, pre.shape[seq] - lo))
         if n:
             full.narrow(seq, 0, n).copy_(pre.narrow(seq, lo, n))

@@ -19,31 +19,48 @@ through the conjugate pair of Megatron-LM:
 * :meth:`Spmd.gather` (an all-gather forward, a reduce-scatter of the sum
   backward): a weight whose ``embed`` dim is split over ``data`` (FSDP),
   or whose columns do not line up with this process's heads.
+* :meth:`Spmd.a2a` (an all-to-all forward, the inverse all-to-all
+  backward): the reference's axis-moving reshard, as attention's
+  ``"batch"`` and ``"cp"`` modes move a flat projection's column blocks to
+  blocks of batch rows or of query positions and back.
 
 Each is one library collective: ``all_reduce`` (sum or max),
-``all_gather_into_tensor`` and ``reduce_scatter_tensor``, with blocks in
-the order of the group's members (the replay tier's ``_gather`` and
-``_reduce_scatter``).  NCCL on the card and gloo on the CPU run them, and
-so does a gloo group that carries CUDA tensors
-(``make_test_mesh(..., device="cuda")``).  A group of one process is never
-called: each helper returns its input, so on a mesh whose rules split no
-parameter :func:`context` is ``None`` and the model computes exactly what
-one device computes.
+``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+``all_to_all_single``, with blocks in the order of the group's members
+(the replay tier's ``_gather``, ``_reduce_scatter`` and ``_all_to_all``).
+NCCL on the card and gloo on the CPU run them, and so does a gloo group
+that carries CUDA tensors (``make_test_mesh(..., device="cuda")``).  A
+group of one process is never called: each helper returns its input, so
+on a mesh whose rules split no parameter (and where no expert routes
+across a data axis) :func:`context` is ``None`` and the model computes
+exactly what one device computes.
 
-What this slice does not execute raises ``NotImplementedError`` naming
-item 12 (:func:`check_supported`).
+The batch's rows are this process's block over the mesh axes that split
+them (``("pod", "data")`` by the rules, where they divide the global
+batch).  What depends on the global batch (attention's mode, MoE's data
+shards) reads it from :meth:`Spmd.batch_axes`: the axes a caller declared
+with :meth:`Spmd.rows` (the train step and the serve engine, which split
+the batch), else every ``batch`` axis of the rules.
+
+What does not execute raises ``NotImplementedError`` naming item 12
+(:func:`check_supported`).
 """
 from __future__ import annotations
+
+import contextlib
+import math
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import mesh_device, mesh_groups, mesh_ranks
-from repro_torch.sharding.collectives import _gather, _reduce_scatter
+from repro_torch.sharding.collectives import (
+    _all_to_all, _gather, _reduce_scatter,
+)
 from repro_torch.sharding.partition import (
     SHARDED_EXECUTION, LogicalRules, PartitionSpec, axis_sizes, entry_axes,
-    is_replicated, sharding_for_shape,
+    is_replicated, sharding_for_shape, spec_for,
 )
 
 MODEL = ("model",)
@@ -114,8 +131,27 @@ class _Gather(torch.autograd.Function):
                 None, None, None)
 
 
+class _AllToAll(torch.autograd.Function):
+    """All-to-all from ``split`` to ``concat`` forward (block ``k`` of
+    ``split`` to member ``k``, the blocks received concatenated along
+    ``concat`` in member order: one ``all_to_all_single``, which gloo runs
+    on CUDA tensors too); backward, the inverse all-to-all of the gradient
+    (from ``concat`` to ``split``)."""
+
+    @staticmethod
+    def forward(ctx, x, pg, members, split, concat):
+        ctx.args = (pg, members, split % x.dim(), concat % x.dim())
+        return _all_to_all(x.contiguous(), split, concat, pg, members)
+
+    @staticmethod
+    def backward(ctx, g):
+        pg, members, split, concat = ctx.args
+        return (_all_to_all(g.contiguous(), concat, split, pg, members),
+                None, None, None, None)
+
+
 # ---------------------------------------------------------------------------
-# what this slice executes
+# what executes
 # ---------------------------------------------------------------------------
 
 
@@ -127,39 +163,39 @@ def shards_parameters(cfg, sizes: dict, rules: LogicalRules) -> bool:
                for m in tree_leaves(param_specs(cfg, sizes, rules)))
 
 
+def routes_rows(cfg, sizes: dict) -> bool:
+    """True when ``cfg`` routes experts on a mesh whose ``pod`` or ``data``
+    axis is over 1: the reference dispatches per data shard and takes the
+    aux loss's means over every shard, so the layers need the mesh even
+    where the rules split no parameter."""
+    return bool(cfg.n_experts) and any(int(sizes.get(a, 1)) > 1
+                                       for a in ("pod", "data"))
+
+
 def check_supported(cfg, sizes: dict, rules: LogicalRules) -> bool:
-    """Whether ``cfg`` runs sharded on a mesh of ``sizes`` (True) or whole
-    on each process (False: the rules split no parameter); raises
-    ``NotImplementedError`` naming item 12 for what this slice does not
-    execute: the encoder-decoder, the VLM's ``s``/``x`` layers and MoE
-    layers on a sharded mesh, attention whose heads the ``model`` axis
-    does not divide (the reference's ``"batch"`` and ``"cp"`` modes), an
-    SSM whose heads it does not divide, and GQA groups that do not line up
-    with the heads of a process."""
-    if not shards_parameters(cfg, sizes, rules):
+    """Whether ``cfg`` runs on the mesh's SPMD context (True: the rules
+    split a parameter, or experts route across a data mesh) or whole on
+    each process (False); raises ``NotImplementedError`` naming item 12 for
+    what does not execute: attention heads that the ``model`` axis does not
+    divide when the flat projection columns do not split over it either
+    (the ``"batch"`` and ``"cp"`` modes move column blocks), an SSM whose
+    heads it does not divide, and GQA groups (or the SSM's B/C groups) that
+    do not line up with the heads of a process."""
+    if not (shards_parameters(cfg, sizes, rules) or routes_rows(cfg, sizes)):
         return False
     where = f"{cfg.name} sharded on {sizes}"
     tp = int(sizes.get("model", 1))
     kinds = set(cfg.layer_kinds())
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"{where}: the encoder-decoder and its "
-                                  f"cross-attention {SHARDED_EXECUTION}")
-    if kinds & {"s", "x"}:
-        raise NotImplementedError(f"{where}: the VLM's self and cross-"
-                                  f"attention layers {SHARDED_EXECUTION}")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{where}: MoE layers (experts on 'model', expert_ffn, routing "
-            f"across a data mesh) {SHARDED_EXECUTION}")
-    if kinds & {"g", "l"}:
-        h, g = cfg.n_heads, cfg.n_kv_heads
-        if h % tp:
+    if kinds & {"g", "l", "s", "x"} or cfg.family == "encdec":
+        h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        if h % tp == 0:
+            for r in range(tp):
+                kv_groups(h, g, tp, r, where)
+        elif (h * hd) % tp or (g * hd) % tp:
             raise NotImplementedError(
-                f"{where}: {h} heads do not divide the model axis of {tp} "
-                f"(the reference's 'batch' or 'cp' attention mode) "
-                f"{SHARDED_EXECUTION}")
-        for r in range(tp):
-            kv_groups(h, g, tp, r, where)
+                f"{where}: {h} heads (and {h * hd} and {g * hd} projection "
+                f"columns) on a model axis of {tp}: the 'batch' and 'cp' "
+                f"modes move column blocks {SHARDED_EXECUTION}")
     if "m" in kinds:
         h = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
         if h % tp:
@@ -195,7 +231,8 @@ def kv_groups(h: int, g: int, tp: int, r: int, where: str = ""
 class Spmd:
     """A mesh's sharded execution of one config, from this process: its
     coordinate, its groups, the config's rules and the collectives above.
-    Build it with :func:`context`."""
+    Build it with :func:`context`; ``tp`` and ``r`` are the ``model``
+    axis's size and this process's index on it."""
 
     def __init__(self, mesh, cfg, rules: LogicalRules):
         self.mesh = mesh
@@ -213,6 +250,45 @@ class Spmd:
         self.tp = int(self.sizes.get("model", 1))
         self.r = int(self.coord.get("model", 0))
         self._specs: dict = {}
+        self._rows: tuple[str, ...] | None = None
+
+    # -- the batch -----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def rows(self, axes):
+        """Declare, for the calls inside, the mesh axes that split the
+        batch's rows (``()``: every process holds the whole batch, as the
+        rules replicate a batch the data axes do not divide)."""
+        old, self._rows = self._rows, tuple(axes)
+        try:
+            yield self
+        finally:
+            self._rows = old
+
+    def batch_axes(self) -> tuple[str, ...]:
+        """The axes (of size over 1) whose processes hold other rows: the
+        declared ones, else every axis of the rules' ``batch``."""
+        if self._rows is None:
+            spec = spec_for(("batch",), self.sizes, self.rules)
+            axes = entry_axes(spec[0] if spec else None)
+        else:
+            axes = self._rows
+        return tuple(a for a in axes if self.sizes.get(a, 1) > 1)
+
+    def row_blocks(self) -> int:
+        return math.prod(self.sizes[a] for a in self.batch_axes())
+
+    def global_batch(self, rows: int) -> int:
+        """The global batch of a call whose local batch has ``rows``."""
+        return rows * self.row_blocks()
+
+    def data_shards(self, batch: int) -> int:
+        """The reference's ``_data_shards`` (``moe.py:43-50``): pod x data,
+        halved until it divides the global ``batch``."""
+        n = int(self.sizes.get("pod", 1)) * int(self.sizes.get("data", 1))
+        while n > 1 and batch % n:
+            n //= 2
+        return max(n, 1)
 
     # -- geometry ------------------------------------------------------------
 
@@ -257,6 +333,14 @@ class Spmd:
         grp = self._group(axes)
         return x if grp is None else _Gather.apply(x, grp[0], grp[1], dim)
 
+    def a2a(self, x, split: int, concat: int, axes=MODEL):
+        """``split`` cut into the group's blocks and ``concat`` made the
+        group's size times longer (autograd: the backward is the inverse
+        all-to-all)."""
+        grp = self._group(axes)
+        return x if grp is None else _AllToAll.apply(x, grp[0], grp[1],
+                                                     split, concat)
+
     def all_gather(self, x, dim: int, axes=MODEL):
         """The blocks of ``x`` over the group concatenated along ``dim`` (no
         gradient)."""
@@ -292,9 +376,8 @@ class Spmd:
 
 def context(mesh, cfg, rules: LogicalRules | None = None) -> Spmd | None:
     """The :class:`Spmd` of ``mesh`` for ``cfg`` (its rules by default), or
-    None off-mesh and where the rules split no parameter (every process
-    computes whole).  Raises for what this slice does not execute
-    (:func:`check_supported`).  Kept on the mesh object, a context a set of
+    None off-mesh and where :func:`check_supported` says the config runs
+    whole on every process.  Raises for what does not execute.  Kept on the mesh object, a context a set of
     rules; the first call for a mesh builds its groups
     (:func:`~repro_torch.launch.mesh.mesh_groups`, collective)."""
     if mesh is None or isinstance(mesh, Spmd):

@@ -18,7 +18,7 @@ reference is one controller over the mesh's devices.
   config's rules (``registry.rules_for``) either replicate every parameter
   (data parallel) or split them the way :mod:`repro_torch.sharding.spmd`
   executes: tensor parallel on ``model`` and FSDP on ``data`` (a
-  config's ``("embed", "data")`` override) for the dense and SSM families.
+  config's ``("embed", "data")`` override) for every family.
   Each process holds its blocks of the parameters and moments and takes
   its rows of the global batch, as the reference's ``batch``-sharded
   ``device_put`` deals them.  The loss and the gradient of every leaf are
@@ -26,12 +26,13 @@ reference is one controller over the mesh's devices.
   do not split the leaf, while a leaf split over ``data`` comes out of the
   backward already summed over it (its gather's reduce-scatter).  The
   clip's norm sums each leaf's squares over the processes that split it.
-  What the slice does not execute raises ``NotImplementedError`` naming
-  item 12 of ROADMAP's queue 1 (``spmd.check_supported``): the
-  encoder-decoder, the VLM and MoE layers on a sharded mesh, heads the
-  ``model`` axis does not divide, and a config that routes experts on a
-  data size over 1 (the reference routes the global batch: capacity and
-  the aux loss span every shard).
+  A config that routes experts on a data size over 1 routes each
+  process's rows as the reference's data shards (``_data_shards`` of the
+  global batch), its aux loss's means taken over every shard
+  (``models/moe.py``): the step declares the axes that split the batch to
+  the model's SPMD context.  What does not execute raises
+  ``NotImplementedError`` naming item 12 of ROADMAP's queue 1
+  (``spmd.check_supported``).
 * :func:`make_manual_dp_train_step` is the reference's explicit DP step:
   per-process gradients, then the int8 error-feedback all-reduce
   (:func:`repro_torch.train.compression.compressed_psum`) leaf by leaf.
@@ -42,6 +43,7 @@ reference is one controller over the mesh's devices.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import tempfile
@@ -61,7 +63,7 @@ from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.model import build_forward, init_params
 from repro_torch.sharding import spmd
 from repro_torch.sharding.partition import (
-    P, axis_sizes, gather_full, local_copy, sharding_for_shape, spec_for,
+    P, axis_sizes, gather_full, local_copy, sharding_for_shape,
 )
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.compression import compressed_psum
@@ -124,10 +126,10 @@ class DataParallel:
 
     By default the config's rules decide: they replicate every parameter
     on ``mesh`` or split them as :mod:`repro_torch.sharding.spmd` executes
-    (``sharded``; else ``NotImplementedError``), an expert-routing config
-    must have a data size of 1, and each batch array splits over the axes
-    its ``batch`` spec names (``("pod", "data")`` as present) where they
-    divide it.  With ``batch_axes``, as the manual step's
+    (``sharded``, which an expert-routing config on a data size over 1 is
+    too: its layers need the mesh), and each batch array splits over the
+    axes its ``batch`` spec names (``("pod", "data")`` as present) where
+    they divide it.  With ``batch_axes``, as the manual step's
     ``shard_map`` declares its batch, every array splits over those axes
     exactly and the rules are not consulted: the parameters are replicated
     whatever they say, and each process routes its own rows.  The
@@ -169,17 +171,7 @@ class DataParallel:
                        for sp in self.specs]
 
     def _check(self, cfg: ArchConfig) -> bool:
-        sharded = spmd.check_supported(cfg, self.sizes, self.rules)
-        batch = spec_for(("batch",), self.sizes, self.rules)
-        n_data = math.prod(self.sizes[a] for a in _entry_axes(batch))
-        if cfg.n_experts and n_data > 1:
-            raise NotImplementedError(
-                f"{cfg.name} routes experts: on a data size of {n_data} the "
-                "reference routes the global batch (capacity and the aux "
-                "loss span every shard), which per-shard routing is not; "
-                "expert routing across a data mesh waits for the rest of "
-                "the sharding substrate (ROADMAP, queue 1, item 12)")
-        return sharded
+        return spmd.check_supported(cfg, self.sizes, self.rules)
 
     def mesh_group(self):
         """The process group over the whole mesh (members only)."""
@@ -336,8 +328,11 @@ def make_train_step(cfg: ArchConfig, mesh=None,
             batch, axes = {k: _tensor(v, dev) for k, v in batch.items()}, ()
         else:
             batch, axes = dp.local_batch(batch)
-        loss, grads = _microbatched_grads(loss_fn, params, batch,
-                                          options.num_microbatches)
+        rows = spmd.context(mesh, cfg).rows(axes) if sharded else \
+            contextlib.nullcontext()
+        with rows:
+            loss, grads = _microbatched_grads(loss_fn, params, batch,
+                                              options.num_microbatches)
         if dp is not None:
             loss, grads = dp.mean(loss, grads, axes)
         params, opt_state, metrics = adamw_update(

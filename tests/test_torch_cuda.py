@@ -261,6 +261,47 @@ def test_cuda_flash_bwd_matches_plain(b, s, t, h, g, d, win, causal, dtype):
         "two calls differ: the backward must be deterministic"
 
 
+#: a "cp" block of query rows against every key: (b, s, t, h, g, d, window,
+#: causal, q_offset), the last the Llama 3.2 3B training shape's second half
+FLASH_OFFSET_CASES = [(2, 256, 1024, 4, 2, 64, None, True, 512),
+                      (1, 333, 1000, 4, 2, 64, 129, True, 600),
+                      (1, 100, 1000, 4, 4, 32, None, True, 37),
+                      (2, 256, 1024, 4, 2, 128, None, False, 768),
+                      (4, 1024, 2048, 24, 8, 128, None, True, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,g,d,win,causal,off", FLASH_OFFSET_CASES)
+def test_cuda_flash_with_q_offset_matches_plain(b, s, t, h, g, d, win,
+                                                causal, off, dtype):
+    """``flash_fwd`` (with its LSE) and ``flash_bwd`` given ``q_offset``
+    against their plain versions given it, within their limits; at offset
+    0 each call equals the call without the argument bit for bit."""
+    rng = np.random.RandomState(off + s)
+    q, k, v, do = (torch.from_numpy(rng.normal(0, 1, shape).astype(
+        np.float32)).to("cuda", dtype) for shape in
+        ((b, s, h, d), (b, t, g, d), (b, t, g, d), (b, s, h, d)))
+    kw = dict(causal=causal, window=win)
+    out, lse = fops.flash_attention_fwd(q, k, v, return_lse=True,
+                                        q_offset=off, **kw)
+    want, want_lse = fref.attention_ref(q, k, v, return_lse=True,
+                                        q_offset=off, **kw)
+    assert _excess("flash_fwd", out, want) <= 1
+    err = (lse - want_lse).abs() / want_lse.abs().clamp_min(1.0)
+    assert float(err.max()) <= LSE_RTOL
+    got = fops.flash_attention_bwd(q, k, v, out, lse, do, q_offset=off, **kw)
+    wantg = fref.attention_bwd_ref(q, k, v, out, lse, do, q_offset=off, **kw)
+    assert _bwd_excess(got, wantg) <= 1
+    o0, l0 = fops.flash_attention_fwd(q, k, v, return_lse=True, q_offset=0,
+                                      **kw)
+    o1, l1 = fops.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o0, o1) and torch.equal(l0, l1)
+    assert all(torch.equal(x, y) for x, y in zip(
+        fops.flash_attention_bwd(q, k, v, o0, l0, do, q_offset=0, **kw),
+        fops.flash_attention_bwd(q, k, v, o0, l0, do, **kw)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,g,d,win,causal", FLASH_CASES)

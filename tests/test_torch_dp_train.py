@@ -736,7 +736,10 @@ cases = {"deepseek_dp4": (smoke(get("deepseek-moe-16b")), make_dp_mesh(4)),
          "mixtral_dp4": (dataclasses.replace(mixtral, rules_overrides=()),
                          make_dp_mesh(4)),
          "llama_2x2": (smoke(get("llama3.2-3b")), make_test_mesh(2, 2)),
-         "mixtral_1x4": (mixtral, make_test_mesh(1, 4))}
+         "mixtral_1x4": (mixtral, make_test_mesh(1, 4)),
+         "mamba_1x4": (dataclasses.replace(smoke(get("mamba2-2.7b")),
+                                           ssm_head_dim=64),
+                       make_test_mesh(1, 4))}
 for name, (cfg, mesh) in cases.items():
     try:
         t = Trainer(cfg, mesh, global_batch=BATCH, seq_len=SEQ,
@@ -753,26 +756,28 @@ except RuntimeError as e:
 
 
 def test_what_still_raises_on_four_processes(pool, tmp_path):
-    """DeepSeek smoke on dp 4 (its ``("embed", "data")`` override shards
-    the embed dims of its MoE layers), Mixtral without its overrides on dp
-    4 (every weight replicated, but it routes experts on a data size of 4)
-    and Mixtral on a 1 × 4 mesh (the model axis shards its expert dims)
-    raise ``NotImplementedError`` naming item 12; Llama on a 2 × 2 ``data ×
-    model`` mesh trains a step since the tensor-parallel slice (the same
-    loss on every process; ``tests/test_torch_tp.py`` holds it to the
-    reference); a wrapper on a real tensor with no bound mesh raises."""
+    """A Mamba2 smoke variant with 2 SSM heads on a 1 × 4 mesh (heads the
+    model axis does not divide) raises ``NotImplementedError`` naming item
+    12; DeepSeek smoke on dp 4 (its ``("embed", "data")`` override shards
+    the embed dims of its MoE layers; each process routes its rows as a
+    data shard), Mixtral without its overrides on dp 4 (every weight
+    replicated, but it routes experts on a data size of 4) and Mixtral on
+    a 1 × 4 mesh (each expert's FFN split over ``model``) train a step
+    since the MoE slice, as Llama on a 2 × 2 ``data × model`` mesh does
+    since the tensor-parallel slice (the same loss on every process;
+    ``tests/test_torch_tp.py`` and ``tests/test_torch_tp_families.py``
+    hold them to the reference); a wrapper on a real tensor with no bound
+    mesh raises."""
     outs = pool.run(f"ROOT = {str(tmp_path)!r}\nSEQ, BATCH = {SEQ}, "
                     f"{BATCH}\n" + POOL_HELPERS + RAISE_TASK)
     for out in outs:
-        for name in ("deepseek_dp4", "mixtral_dp4", "mixtral_1x4"):
-            assert isinstance(out[name], str) and "item 12" in out[name], \
-                (name, out[name])
-        assert "sharded" in out["deepseek_dp4"]
-        assert "MoE" in out["deepseek_dp4"]
-        assert "routes experts" in out["mixtral_dp4"]
-        assert "sharded" in out["mixtral_1x4"] and "MoE" in out["mixtral_1x4"]
-        assert out["llama_2x2"] == outs[0]["llama_2x2"]
-        assert len(out["llama_2x2"]) == 1 and out["llama_2x2"][0] > 0
+        assert isinstance(out["mamba_1x4"], str) and \
+            "item 12" in out["mamba_1x4"] and "SSM heads" in \
+            out["mamba_1x4"], out["mamba_1x4"]
+        for name in ("llama_2x2", "deepseek_dp4", "mixtral_dp4",
+                     "mixtral_1x4"):
+            assert out[name] == outs[0][name], name
+            assert len(out[name]) == 1 and out[name][0] > 0, name
         assert "no mesh bound" in out["unbound"]
 
 

@@ -622,8 +622,10 @@ def test_input_and_cache_specs_equal_the_references(arch, monkeypatch):
 
 def test_attention_modes_and_what_raises_in_process():
     """``attn_mode``, ``tp_size`` and ``head_sharded`` equal the reference's
-    on stand-in meshes; a mode other than ``"heads"`` raises naming item
-    12 (``check_heads_mode``, which attention calls), as do GQA groups that do
+    on stand-in meshes; the ``"batch"`` and ``"cp"`` modes execute (6 heads
+    on a model axis of 4), while heads whose flat projection columns do
+    not split over the axis (3 heads of 18 on 4) raise naming item 12, as
+    do GQA groups that do
     not line up with a process's heads (24 q and 8 kv heads on a model
     axis of 3); a mesh whose rules split nothing runs whole (None)."""
     import dataclasses
@@ -640,12 +642,13 @@ def test_attention_modes_and_what_raises_in_process():
             assert A.head_sharded(sizes, h) == JA.head_sharded(jm, h)
             for b in (1, 2, 8):
                 assert F.attn_mode(sizes, h, b) == JF.attn_mode(jm, h, b)
-    with pytest.raises(NotImplementedError, match="'cp' mode.*item 12"):
-        F.check_heads_mode({"data": 1, "model": 3}, 4, 2)
-    with pytest.raises(NotImplementedError, match="'batch' mode.*item 12"):
-        F.check_heads_mode({"data": 1, "model": 3}, 4, 3)
-    F.check_heads_mode({"data": 2, "model": 2}, 4, 1)
     llama = smoke(get("llama3.2-3b"))
+    six = dataclasses.replace(llama, n_heads=6)
+    assert spmd.check_supported(six, {"data": 1, "model": 4},
+                                rules_for(six)) is True
+    odd = dataclasses.replace(llama, n_heads=3, n_kv_heads=1, head_dim=18)
+    with pytest.raises(NotImplementedError, match="column blocks.*item 12"):
+        spmd.check_supported(odd, {"data": 1, "model": 4}, rules_for(odd))
     gqa = dataclasses.replace(llama, n_heads=24, n_kv_heads=8)
     with pytest.raises(NotImplementedError, match="line up.*item 12"):
         spmd.check_supported(gqa, {"data": 1, "model": 3}, rules_for(gqa))

@@ -500,14 +500,17 @@ def test_trainer_microbatching_equivalence(tmp_path):
 
 def test_mesh_paths_wait_for_the_mesh_slice(tmp_path):
     """What still raises ``NotImplementedError`` naming item 12: the
-    config and mesh pairs the sharded slice does not execute (Mixtral's
-    experts on a 1 × 4 mesh, DeepSeek's routing and override on dp 4,
-    Whisper on a ``model`` axis of 2, 4 heads on a ``model`` axis of 8:
-    the reference's ``"batch"`` or ``"cp"`` mode), and a config that
-    routes experts on a data size over 1; a mesh given as a plain
-    geometry, not a DeviceMesh, raises ``TypeError`` (Llama on 2 × 2 gets
-    past the sharding check since the tensor-parallel slice:
-    ``tests/test_torch_tp.py`` runs it on four processes).  What runs since
+    config and mesh pairs the sharded execution does not run (3 heads of
+    18 on a ``model`` axis of 4, whose flat columns do not split over it;
+    a Mamba2 variant with 2 SSM heads on a ``model`` axis of 4); a mesh
+    given as a plain geometry, not a DeviceMesh, raises ``TypeError``
+    after the sharding check, which Llama on 2 × 2 passes since the
+    tensor-parallel slice and Mixtral's experts on 1 × 4, DeepSeek's
+    routing and override on dp 4, Whisper on a ``model`` axis of 2, 4
+    heads on a ``model`` axis of 8 (the ``"batch"`` or ``"cp"`` mode) and a
+    config that routes experts on a data size over 1 since the MoE slice
+    (``tests/test_torch_tp.py`` and ``tests/test_torch_tp_families.py``
+    run them on four processes).  What runs since
     the data-parallel slice: ``grad_compression="int8"`` is ignored by
     ``make_train_step``, as the reference ignores it (the same loss bits),
     and on a one-process gloo group the manual int8 DP step trains and
@@ -520,16 +523,22 @@ def test_mesh_paths_wait_for_the_mesh_slice(tmp_path):
     cfg = smoke(get("llama3.2-3b"))
     with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(cfg, mesh={"data": 2, "model": 2}, device="cpu")
-    for arch, sizes, what in (
-            ("deepseek-moe-16b", {"data": 4}, "MoE"),
-            ("mixtral-8x22b", {"data": 1, "model": 4}, "MoE"),
-            ("whisper-large-v3", {"data": 1, "model": 2}, "encoder-decoder"),
-            ("llama3.2-3b", {"data": 1, "model": 8}, "'cp' attention")):
+    mamba = dataclasses.replace(smoke(get("mamba2-2.7b")), ssm_head_dim=64)
+    odd = dataclasses.replace(cfg, n_heads=3, n_kv_heads=1, head_dim=18)
+    for c, sizes, what in (
+            (odd, {"data": 1, "model": 4}, "column blocks"),
+            (mamba, {"data": 1, "model": 4}, "SSM heads")):
         with pytest.raises(NotImplementedError, match="item 12") as e:
+            make_train_step(c, sizes, device="cpu")
+        assert what in str(e.value), (c.name, str(e.value))
+    for arch, sizes in (("deepseek-moe-16b", {"data": 4}),
+                        ("mixtral-8x22b", {"data": 1, "model": 4}),
+                        ("whisper-large-v3", {"data": 1, "model": 2}),
+                        ("llama3.2-3b", {"data": 1, "model": 8})):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make_train_step(smoke(get(arch)), sizes, device="cpu")
-        assert what in str(e.value), (arch, str(e.value))
     moe = dataclasses.replace(smoke(get("mixtral-8x22b")), rules_overrides=())
-    with pytest.raises(NotImplementedError, match="routes experts"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(moe, {"data": 2}, ckpt_dir=tmp_path, device="cpu")
     with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(cfg, mesh={"data": 4}, device="cpu")

@@ -114,7 +114,13 @@ paths on the card, checking that each went through its kernels:
   against one device, with their prefill/decode consistency on the mesh;
   one DeepSeek-MoE train step at its 9-layer cut against one device; and
   ``flash_fwd``/``flash_bwd`` with a query offset at a ``cp`` shape, held
-  to their plain versions and timed beside SDPA with the equivalent mask.
+  to their plain versions and timed beside SDPA with the equivalent mask;
+- slice 15: the launch tier (:func:`phase_dryrun`): the dry run's entry
+  point walks Llama 3.2 3B's ``train_4k`` on the production meshes of one
+  and two pods (a fake world of 256 and 512 processes on meta tensors, in
+  a subprocess that sees no card), and the train phase's own Llama step on
+  one device, whose predicted argument + temp bytes must land within
+  0.8-1.25x of the warm step's measured peak; no kernel launches.
 
 Then it times every kernel against its plain version, its bound and, where
 one PyTorch call computes the same function, that call; for the two
@@ -138,6 +144,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1219,6 +1226,107 @@ def phase_trace(dev) -> dict:
             if not all(math.isfinite(v) for v in vec) or vec[0] <= 0:
                 fail(f"walking {arch} {kind}: cost {vec}")
     return {"targets": rows, "costs": costs}
+
+
+#: slice 15: the production cells the dry run's entry point walks in a
+#: subprocess of its own (on meta tensors, with the card hidden from it)
+DRYRUN_CELL = ("llama3.2-3b", "train_4k")
+#: the one-device prediction of the train phase's Llama 3.2 3B step
+#: (argument + temp bytes) against its measured warm-step peak
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+
+
+def phase_dryrun(train: dict) -> dict:
+    """Slice 15: the launch tier.  The dry run's entry point
+    (``python -m repro_torch.launch.dryrun``) walks DRYRUN_CELL on the
+    production mesh of one pod and of two (a fake world of 256 and 512
+    processes, meta tensors) in a subprocess that sees no card; both cells
+    must end ``ok``.  Then the train phase's own configuration (Llama 3.2
+    3B at full width, batch 4 x 2048, bf16, remat, AdamW) is dry-run on a
+    one-device mesh in process: its argument + temp bytes must land in
+    DRYRUN_PEAK_BAND of the train phase's measured warm-step peak, and its
+    step-time bound is printed against the measured step.  Neither walk
+    launches a kernel."""
+    import dataclasses
+    from repro_torch.configs import get
+    from repro_torch.configs.base import RunShape
+    from repro_torch.launch import dryrun
+
+    arch, shape = DRYRUN_CELL
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    if out_dir.exists():
+        for f in out_dir.glob("*"):
+            f.unlink()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    reset_counts()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--multi-pod", "both", "--out", str(out_dir)],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    cells_s = time.perf_counter() - t0
+    print(proc.stdout.strip())
+    if proc.returncode != 0:
+        fail(f"dryrun {arch} x {shape}: exit {proc.returncode}\n"
+             f"{proc.stderr[-4000:]}")
+    cells = {}
+    for mesh in ("pod16x16", "pod2x16x16"):
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        if not path.exists():
+            fail(f"dryrun: no record {path.name}")
+        rec = json.loads(path.read_text())
+        r = rec["roofline"]
+        if not rec.get("ok") or not r["flops_per_chip"] > 0:
+            fail(f"dryrun {path.name}: {rec}")
+        row = {"t_compute_s": r["t_compute"], "t_memory_s": r["t_memory"],
+               "t_collective_s": r["t_collective"],
+               "bottleneck": r["bottleneck"],
+               "roofline_fraction": rec["roofline_fraction"],
+               "step_time_bound_s": rec["step_time_bound_s"],
+               "per_device_gib": r["memory_per_device"] / 2 ** 30,
+               "walk_s": rec["compile_sec"]}
+        print(f"dryrun {arch} x {shape} x {mesh}: {json.dumps(row)}")
+        cells[mesh] = row
+
+    # the train phase's configuration on one device
+    cfg = get("llama3.2-3b")
+    seq, depth = TRAIN_CELLS["llama3.2-3b"]
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    measured = train["llama3.2-3b"]
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(cfg, RunShape("train_phase", seq, TRAIN_BATCH,
+                                        "train"),
+                          mesh_shape={"data": 1, "model": 1})
+    walk_s = time.perf_counter() - t0
+    launched = {k: v for k, v in read_counts().items() if v}
+    if launched:
+        fail(f"the dry-run walks launched kernels: {launched}")
+    mem = rec["memory_analysis"]
+    predicted = (mem["argument_bytes"] + mem["temp_bytes"]) / 2 ** 30
+    peak = measured["peak_gib_warm_step"]
+    ratio = predicted / peak
+    bound_s = rec["step_time_bound_s"]
+    step_s = measured["step_ms"] / 1e3
+    one = {"argument_gib": mem["argument_bytes"] / 2 ** 30,
+           "temp_gib": mem["temp_bytes"] / 2 ** 30,
+           "predicted_gib": predicted, "measured_peak_gib": peak,
+           "predicted_over_measured": ratio, "band": DRYRUN_PEAK_BAND,
+           "step_time_bound_s": bound_s, "measured_step_s": step_s,
+           "bound_over_step": bound_s / step_s,
+           "bottleneck": rec["roofline"]["bottleneck"], "walk_s": walk_s}
+    print(f"dryrun one device, Llama 3.2 3B train {TRAIN_BATCH} x {seq} "
+          f"({CARD}): predicted {predicted:.2f} GiB (arguments "
+          f"{one['argument_gib']:.2f} + temp {one['temp_gib']:.2f}) against "
+          f"the measured warm-step peak {peak:.2f} GiB: {ratio:.3f}x; "
+          f"step-time bound {bound_s:.4f} s against the measured step "
+          f"{step_s:.4f} s ({bound_s / step_s:.3f})")
+    lo, hi = DRYRUN_PEAK_BAND
+    if not lo <= ratio <= hi:
+        fail(f"dryrun: predicted {predicted:.2f} GiB is {ratio:.3f}x the "
+             f"measured {peak:.2f} GiB, outside {DRYRUN_PEAK_BAND}")
+    return {"cells": cells, "cells_s": cells_s, "one_device": one}
 
 
 #: slice 10: the corpus tier at the paper's 64-rank scale (the zoo's five
@@ -4681,6 +4789,10 @@ def main() -> None:
     trace = phase_trace(dev)
     trace["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"trace": trace}))
+    t0 = time.perf_counter()
+    dry = phase_dryrun(train)
+    dry["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"dryrun": dry}))
     t0 = time.perf_counter()
     corpus = phase_corpus(dev)
     corpus["phase_s"] = time.perf_counter() - t0

@@ -19,8 +19,9 @@ pair each parameter and batch array, as a meta tensor, with its
 dry-run argument tuples (train: params, optimizer state, batch; prefill:
 params, batch; decode: params, cache, batch, position) the same way.  The
 decode cache's layout is what ``model.init_cache(mesh=)`` allocates and
-the sharded decode step executes; the dry run that lowers these arguments
-waits (ROADMAP, queue 1, item 12).
+the sharded decode step executes; the dry run
+(:mod:`repro_torch.launch.dryrun`) walks a step on this process's blocks
+of these arguments.
 """
 from __future__ import annotations
 
@@ -120,10 +121,11 @@ def cache_specs(cfg: ArchConfig, shape: RunShape, mesh, rules=None):
         abstract_cache(cfg, b, s), cache_logical_axes(cfg, b, s))
 
 
-def input_specs(arch_id: str, shape_name: str, mesh, *,
-                with_opt: bool = True):
+def input_specs(arch_id, shape_name, mesh, *, with_opt: bool = True):
     """``(cfg, args)``: the step's argument tuple of (arch x shape) as
-    MetaSpecs, as the reference's ``input_specs`` gives them.
+    MetaSpecs, as the reference's ``input_specs`` gives them.  (The port
+    also takes an ArchConfig for ``arch_id`` and a RunShape for
+    ``shape_name``: a reduced config or a shape outside ``SHAPES``.)
 
     train   -> (params, opt_state, batch)   (``with_opt=False``: no
                opt_state)
@@ -131,8 +133,9 @@ def input_specs(arch_id: str, shape_name: str, mesh, *,
     decode  -> (params, cache, batch, pos)
     """
     from repro_torch.configs.base import SHAPES
-    cfg = get(arch_id)
-    shape = SHAPES[shape_name]
+    cfg = arch_id if isinstance(arch_id, ArchConfig) else get(arch_id)
+    shape = shape_name if isinstance(shape_name, RunShape) else \
+        SHAPES[shape_name]
     rules = rules_for(cfg)
     params = param_specs(cfg, mesh, rules)
     batch = batch_specs(cfg, shape, mesh, rules)

@@ -126,10 +126,13 @@ class _FunctionCost(TorchFunctionMode):
         if rule is None or w._paused:
             return func(*args, **kwargs)
         before = w.pending.copy()
+        mark = w.mark()
         out = func(*args, **kwargs)
         cost = rule(args, out)
         if cost is not None:
-            w.pending = before + cost
+            w.pending = before
+            w.drop_since(mark)
+            w.charge(cost, func, out)
         return out
 
 
@@ -165,8 +168,30 @@ class CostWalker(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if not self._paused:
-            self.pending += op_cost(func, args, kwargs, out)
+            self.charge(op_cost(func, args, kwargs, out), func, out)
         return out
+
+    # Every cost reaches ``pending`` through :meth:`charge`; a loop walked
+    # once and charged ``n`` times calls :meth:`repeat_since`, and a
+    # function-level rule that replaces its aten ops' charges
+    # :meth:`drop_since`.  Here they keep no record of the ops: the op log
+    # of :func:`repro_torch.launch.hlo_cost.record_step` overrides them.
+
+    def charge(self, cost: np.ndarray, site, out=None) -> None:
+        """Add ``cost``, the charge of ``site`` (an aten op, a torch
+        function or a name) whose result is ``out``."""
+        self.pending += cost
+
+    def mark(self):
+        """A position in the charges made so far."""
+        return None
+
+    def repeat_since(self, mark, n: int) -> None:
+        """The charges since ``mark`` stand for ``n`` runs of them."""
+
+    def drop_since(self, mark) -> None:
+        """The charges since ``mark`` are withdrawn (``pending`` is reset by
+        the caller)."""
 
     @contextlib.contextmanager
     def uncharged(self):
@@ -269,6 +294,12 @@ def _stack_ys(ys: list, n: int, walker: CostWalker | None):
         return tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), ys[0])
 
 
+def _turn_cost(w: CostWalker, per_turn: np.ndarray) -> None:
+    """A loop turn's own cost (``counted_loop``'s counter update)."""
+    if per_turn.any():
+        w.charge(per_turn, "loop_counter")
+
+
 def _loop(n: int, body: Callable, carry, xs, per_turn: np.ndarray,
           stack_ys: bool):
     """The engine of :func:`counted_loop` and :func:`scan_loop`."""
@@ -297,11 +328,14 @@ def _loop(n: int, body: Callable, carry, xs, per_turn: np.ndarray,
         return done(carry)
     n_ev = len(w.events)
     saved = w.pending
-    w.pending = per_turn.copy()
+    w.pending = np.zeros(N_METRICS, dtype=np.float64)
+    mark = w.mark()
+    _turn_cost(w, per_turn)
     carry = turn(0, carry)
     if len(w.events) == n_ev and not grad:
         # collective-free: one walk, charged n times, n scan steps
         w.pending = saved + w.pending * n
+        w.repeat_since(mark, n)
         w.pending[I_SCAN] += n
         return done(carry)
     if len(w.events) > n_ev:
@@ -314,14 +348,14 @@ def _loop(n: int, body: Callable, carry, xs, per_turn: np.ndarray,
             else:
                 w.events[n_ev] = ComputeEvent(tuple(saved + first.vector))
         for i in range(1, n):
-            w.pending += per_turn
+            _turn_cost(w, per_turn)
             carry = turn(i, carry)
         return done(carry)
     # collective-free, and autograd needs every turn's graph; the backward
     # of the xs slices (_Unstack) charges the transposed scan's turns
     w.pending = saved + w.pending
     for i in range(1, n):
-        w.pending += per_turn
+        _turn_cost(w, per_turn)
         carry = turn(i, carry)
     w.pending[I_SCAN] += n
     return done(carry)
@@ -371,10 +405,10 @@ def _index_cost(x: torch.Tensor, update: torch.Tensor | None,
     return c
 
 
-def _charge(cost: np.ndarray) -> None:
+def _charge(cost: np.ndarray, site: str, out: torch.Tensor) -> None:
     w = active_walker()
     if w is not None:
-        w.pending += cost
+        w.charge(cost, site, out)
 
 
 def dynamic_slice(x: torch.Tensor, dim: int, start, size: int
@@ -385,7 +419,7 @@ def dynamic_slice(x: torch.Tensor, dim: int, start, size: int
     i0, norm = _start(start)
     with uncharged():
         out = x.narrow(dim, i0, size).clone()
-    _charge(_index_cost(x, None, out) + norm)
+    _charge(_index_cost(x, None, out) + norm, "dynamic_slice", out)
     return out
 
 
@@ -397,7 +431,8 @@ def dynamic_update_slice(x: torch.Tensor, update: torch.Tensor, dim: int,
     with uncharged():
         out = x.clone()
         out.narrow(dim, i0, update.shape[dim]).copy_(update)
-    _charge(_index_cost(x, update, out) + norm)
+    _charge(_index_cost(x, update, out) + norm, "dynamic_update_slice",
+            out)
     return out
 
 
@@ -407,7 +442,7 @@ def _mixed_dot(name: str, fn: Callable, args: tuple, a: torch.Tensor,
     with uncharged():
         out = fn(a.to(dt), b.to(dt))
     if active_walker() is not None:
-        _charge(dot_cost(name, args, out))
+        _charge(dot_cost(name, args, out), name, out)
     return out
 
 

@@ -23,8 +23,17 @@ The trainer and the serve engine (:mod:`repro_torch.train.loop`,
 through :mod:`repro_torch.sharding.spmd`) and the instrumented collectives
 on real tensors (:func:`repro_torch.sharding.collectives.bind_mesh`) run on
 these meshes too, over the groups of :func:`mesh_groups`, built once a
-mesh.  ``make_production_mesh`` (256 devices, the multi-pod dry run) is not
-ported yet: it comes with ``dryrun`` (ROADMAP, queue 1, item 12).
+mesh.
+
+:func:`make_production_mesh` is the reference's production mesh (16 × 16
+over ``("data", "model")``, or 2 × 16 × 16 with ``"pod"``).  On a cluster
+it runs over NCCL like every other mesh here.  The dry run
+(:mod:`repro_torch.launch.dryrun`) builds it in one process that plays
+rank 0 of the whole world through torch's fake backend
+(:func:`fake_world`: ``dist.init_process_group("fake", ...)``), whose
+tensors are meta tensors and whose collectives return at once: the
+backend ``"fake"`` runs ``meta`` tensors, as NCCL runs ``cuda`` and gloo
+``cpu`` ones, and nothing is staged between them.
 
 **One opt-in: CUDA tensors over gloo.**  ``make_test_mesh(...,
 device="cuda")`` builds a mesh whose tensors live on the current CUDA
@@ -41,6 +50,7 @@ runs (:func:`check_tensor_backend`).
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 from typing import Sequence
@@ -49,8 +59,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-#: the device type each backend runs tensors of
-BACKEND_DEVICE = {"nccl": "cuda", "gloo": "cpu"}
+#: the device type each backend runs tensors of (``fake``: the dry run's
+#: world of one process, :func:`fake_world`)
+BACKEND_DEVICE = {"nccl": "cuda", "gloo": "cpu", "fake": "meta"}
 
 
 def backend_device_type() -> str:
@@ -103,6 +114,33 @@ def _mk(shape: Sequence[int], names: Sequence[str], devices=None,
                       torch.tensor(ranks, dtype=torch.int64).reshape(
                           tuple(int(s) for s in shape)),
                       mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16×16 = 256 devices a pod; multi-pod adds the 2-pod leading axis
+    (the reference's shapes and axis names).  Needs a world of 256 (512)
+    processes: NCCL on a cluster, or :func:`fake_world` for the dry run."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mk(shape, axes)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A process group of ``world_size`` processes in which this process
+    plays rank 0 alone: torch's fake backend (its tensors are meta
+    tensors, its collectives return at once).  Destroyed on exit; raises
+    where a process group is already initialized."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized: the "
+                           "fake world needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(world_size))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_test_mesh(data: int = 2, model: int = 2,

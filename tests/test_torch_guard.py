@@ -40,6 +40,8 @@ def test_every_module_imports_without_jax_or_the_reference():
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
         "             and (m == 'repro' or m.startswith(('repro.', 'jax'))))\n"
         "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import started a process group'\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -296,6 +298,8 @@ def test_new_modules_and_the_unrolled_proxy_import_only_the_port(tmp_path):
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
         "             and (m == 'repro' or m.startswith(('repro.', 'jax'))))\n"
         "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import started a process group'\n"
         "print(res.stats['codegen'])\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,

@@ -3510,12 +3510,31 @@ TP_F32_CUT = {"mamba2-2.7b": (8, 1792, 8)}
 #: SSD chunk of 256 or shorter than it
 TP_CELLS = {"llama3.2-3b": (2048, "flash_fwd", (2048, 8)),
             "mamba2-2.7b": (2048, "ssd_diag", (256, 32))}
+#: their depth on model 2, cut to pay for model 3's full-depth serve cells
+#: (phase_tp3): every layer of a kind runs the same code, and every check
+#: stays; and the Llama train step's (its limits do not depend on depth)
+TP_SERVE_LAYERS = {"llama3.2-3b": 14, "mamba2-2.7b": 32}
+TP_TRAIN_LAYERS = 14
 #: a process's kernel shapes at model 2: Llama 3.2 3B's 24/8 heads halved,
 #: Mamba2 2.7B's 80 SSD heads halved
 TP_FLASH = dict(b=4, s=2048, h=12, g=4, d=128)
 TP_SSD = dict(b=4, c=8, q=256, g=1, r=40, p=64, n=128)
 #: seconds phase_tp waits for its processes
 TP_TIMEOUT = 900
+#: slice 16: a model axis of 3 on three processes of the card, which
+#: divides neither Llama 3.2 3B's 8 kv heads nor its 2048 + 32 cache, nor
+#: Mamba2 2.7B's 80 SSM heads: each process runs 8 q heads with one kv head
+#: each (their groups expanded by the index map, so the flash kernels run
+#: MHA), a whole cache, and every SSM head (TP_CELLS' serve cells and the
+#: Llama train step, at the levels of model 2)
+TP3_MODEL = 3
+#: the Llama train step's layers at model 3: its FFN's 8192 columns do
+#: not divide 3, so each process holds every layer's FFN and its AdamW
+#: moments, and three processes of all 28 layers (about 36 GB each) do not
+#: fit the one card
+TP3_TRAIN_LAYERS = 14
+TP3_FLASH = dict(b=4, s=2048, h=8, g=8, d=128)
+TP3_SSD = dict(b=4, c=8, q=256, g=1, r=80, p=64, n=128)
 #: slice 14, (a): the f32 smoke configs of the families PR 23 left, against
 #: one device at the levels above, and a 3-head variant of the Llama smoke
 #: config (48 flat q columns, 1.5 heads a process) in the two modes the
@@ -3528,27 +3547,37 @@ TP_MODE_BATCH = {"batch": 4, "cp": 1}
 TP_MODE_PROMPT = 1024
 #: (b): full width, bf16, SERVE_BATCH rows, SERVE_NEW new tokens on the
 #: mesh: (prompt, the consistency's (length, decode steps), layers kept or
-#: None).  Whisper's 416 + 32 are its 448 decoder positions.  The VLM's 20
-#: units of five layers are 179 GB in bf16; the one-device prefill every
-#: check is held to runs on the same card after the two processes have
-#: freed theirs, so 2 units (10 of 100 layers: 8 self-attention and 2
-#: cross-attention layers, 9.6 B parameters, 19 GB) keep the phase short
-#: beside PR 19's 6 units on one device.
-TP_FAMILY_CELLS = {"deepseek-moe-16b": (2048, (2048, 8), None),
-                   "whisper-large-v3": (416, (416, 8), None),
-                   VLM: (2048, (2048, 8), 10)}
+#: None).  Whisper's 416 + 32 are its 448 decoder positions; its decoder
+#: runs 16 of its 32 layers since slice 16 (its encoder whole: the flash
+#: kernel's 32 launches a generate).  The VLM's 20 units of five layers
+#: are 179 GB in bf16; the one-device prefill every check is held to runs
+#: on the same card after the two processes have freed theirs, so one unit
+#: (5 of 100 layers: 4 self-attention and 1 cross-attention layer; 2 units
+#: before slice 16) keeps the phase short beside slice 9's 6 units on one
+#: device.
+TP_FAMILY_CELLS = {"deepseek-moe-16b": (2048, (2048, 8), 14),
+                   "whisper-large-v3": (416, (416, 8), 16),
+                   VLM: (2048, (2048, 8), 5)}
 #: their bf16 prefill logits against one device's, as a share of the
 #: largest: 2^-4 for Whisper and the VLM (the serve level of bf16 logits).
 #: DeepSeek-MoE's routing takes its top 6 of 64 experts from a bf16 router
 #: product: the mesh's sums in another order move a layer's input by bf16
 #: rounding, which flips near-tied picks and which tokens an over-full
-#: expert drops, and 28 layers amplify the flips as they amplify the
+#: expert drops, and depth amplifies the flips as it amplifies the
 #: reference's own prefill-against-decode drift (0.135 of max|logits| at d
-#: 128; the card's first run of this check: 0.224).  So its whole model is
-#: held to twice that drift, as its consistency is, and its sharded MoE
-#: layers in f32 (TP_FAMILY_F32_CUT), where no pick flips, to 1e-4
-TP_FAMILY_LOGIT_RTOL = {"deepseek-moe-16b": 2 * REFERENCE_MOE_BF16_DRIFT,
-                        "whisper-large-v3": 2.0 ** -4, VLM: 2.0 ** -4}
+#: 128 and 28 layers).  At 28 layers the card read 0.224 and was held to
+#: twice that drift, 0.27: 1.2 times the reading.  At the 14 layers it runs
+#: now (TP_FAMILY_CELLS) the card read 0.1175, so the limit keeps that room
+#: over the 14-layer reading (0.27 / 0.224 of it, 0.1416) and not the
+#: 28-layer allowance, which would leave it 2.3 times (the readings by
+#: depth: another depth needs its own).  Its sharded MoE layers are held in
+#: f32 (TP_FAMILY_F32_CUT), where no pick flips, to 1e-4
+TP_DEEPSEEK_BF16_GAP = {28: 0.224, 14: 0.1175}
+TP_FAMILY_LOGIT_RTOL = {
+    "deepseek-moe-16b": 2 * REFERENCE_MOE_BF16_DRIFT
+    / TP_DEEPSEEK_BF16_GAP[28]
+    * TP_DEEPSEEK_BF16_GAP[TP_FAMILY_CELLS["deepseek-moe-16b"][2]],
+    "whisper-large-v3": 2.0 ** -4, VLM: 2.0 ** -4}
 #: full width in f32, cut in depth, the mesh against one device (layers
 #: kept, prefill length, decode steps), at capacity factor n_experts /
 #: top_k (nothing drops), each step's logits within TP_LOGIT_RTOL
@@ -3769,10 +3798,12 @@ def _tp_peak_gib(dev):
     return round(torch.cuda.max_memory_allocated(dev) / 2 ** 30, 3)
 
 
-def _tp_serve(arch: str, mesh, dev, rank: int) -> dict:
-    """A full-width bf16 config served on the mesh: prefill logits against
-    one device's, a generate (its launches and their heads), and the
-    prefill/decode consistency on the mesh."""
+def _tp_serve(arch: str, mesh, dev, rank: int, layers: int | None = None
+              ) -> dict:
+    """A full-width bf16 config served on the mesh (at ``layers`` where
+    given): prefill logits against one device's, a generate (its launches
+    and their heads), and the prefill/decode consistency on the mesh."""
+    import dataclasses
     from repro_torch.configs import get
     from repro_torch.configs.registry import rules_for
     from repro_torch.models.model import (
@@ -3782,13 +3813,15 @@ def _tp_serve(arch: str, mesh, dev, rank: int) -> dict:
     from repro_torch.sharding.partition import shard_params
 
     cfg = get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     plen, kernel, (clen, steps) = TP_CELLS[arch]
     prompts = serve_prompts(cfg, SERVE_BATCH, plen)
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     prefill = build_forward(cfg, "prefill")
     decode = build_forward(cfg, "decode")
     whole = init_params(cfg, 0, dev)
-    row = {}
+    row = {"layers": cfg.n_layers}
     with torch.inference_mode():
         want = _tp_block(prefill(whole, {"tokens": toks}, cfg)[0],
                          ("batch", "vocab"), mesh, cfg).float().clone()
@@ -3845,9 +3878,11 @@ def _tp_serve(arch: str, mesh, dev, rank: int) -> dict:
     return row
 
 
-def _tp_train(mesh, dev, rank: int) -> dict:
+def _tp_train(mesh, dev, rank: int, layers: int | None = None) -> dict:
     """One Llama 3.2 3B train step at 4 x 2048 on the mesh (launches, ms,
-    peak), then, on process 0 alone, the same step on one device."""
+    peak), then, on process 0 alone, the same step on one device; at
+    ``layers`` of its 28 where given."""
+    import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get
     from repro_torch.models.model import init_params
@@ -3856,11 +3891,13 @@ def _tp_train(mesh, dev, rank: int) -> dict:
     from repro_torch.train.optimizer import adamw_init
 
     cfg = get("llama3.2-3b")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     batch = TokenDataset(cfg.vocab, 2048, TRAIN_BATCH, seed=1).batch_at(0)
     params = init_params(cfg, 0, dev, mesh=mesh)
     opt = adamw_init(params)
     step = make_train_step(cfg, mesh)
-    row = {}
+    row = {"layers": cfg.n_layers}
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -4197,12 +4234,13 @@ def _tp_worker(rank: int, world: int, store: str, queue, opts: dict) -> None:
             from repro_torch.launch.mesh import make_test_mesh
             mesh = make_test_mesh(1, world, device=(
                 "cuda" if dev.type == "cuda" else None))
-            out = {"gloo_64mib_ms": _tp_gloo(dev, rank)}
+            out = {"gloo_64mib_ms": _tp_gloo(dev, rank), "world": world}
             out["smoke"] = {a: _tp_smoke(a, mesh, dev) for a in opts["smoke"]}
-            out["serve"] = {a: _tp_serve(a, mesh, dev, rank)
-                            for a in opts["serve"]}
+            out["serve"] = {a: _tp_serve(a, mesh, dev, rank, opts.get(
+                "serve_layers", {}).get(a)) for a in opts["serve"]}
             if opts["train"]:
-                out["train"] = _tp_train(mesh, dev, rank)
+                out["train"] = _tp_train(mesh, dev, rank,
+                                         opts.get("train_layers"))
             out["modes"] = _tp_modes(mesh, dev) if opts["modes"] else {}
             out["families"] = {a: _tp_family(a, mesh, dev, rank)
                                for a in opts["families"]}
@@ -4215,10 +4253,11 @@ def _tp_worker(rank: int, world: int, store: str, queue, opts: dict) -> None:
         queue.put((rank, traceback.format_exc()))
 
 
-def tp_processes(opts: dict, base: Path) -> list[dict]:
-    """phase_tp's processes (spawned, TP_MODEL of them): each one's result,
-    in rank order; fails, ending them all, when one fails or they do not
-    end within TP_TIMEOUT."""
+def tp_processes(opts: dict, base: Path, world: int = TP_MODEL
+                 ) -> list[dict]:
+    """phase_tp's processes (spawned, ``world`` of them: the model axis):
+    each one's result, in rank order; fails, ending them all, when one
+    fails or they do not end within TP_TIMEOUT."""
     import queue as queue_mod
     import shutil
     import torch.multiprocessing as mp
@@ -4228,14 +4267,14 @@ def tp_processes(opts: dict, base: Path) -> list[dict]:
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     procs = [ctx.Process(target=_tp_worker,
-                         args=(r, TP_MODEL, str(base / "store"), q, opts))
-             for r in range(TP_MODEL)]
+                         args=(r, world, str(base / "store"), q, opts))
+             for r in range(world)]
     for p in procs:
         p.start()
     outs, err = {}, None
     try:
         deadline = time.perf_counter() + TP_TIMEOUT
-        while len(outs) < TP_MODEL and err is None:
+        while len(outs) < world and err is None:
             try:
                 rank, out = q.get(timeout=max(1.0, deadline -
                                               time.perf_counter()))
@@ -4254,7 +4293,7 @@ def tp_processes(opts: dict, base: Path) -> list[dict]:
         shutil.rmtree(base, ignore_errors=True)
     if err is not None:
         fail(f"tp: {err}")
-    return [outs[r] for r in range(TP_MODEL)]
+    return [outs[r] for r in range(world)]
 
 
 def tp_kernel_rows(dev, launches: dict) -> list[dict]:
@@ -4262,8 +4301,6 @@ def tp_kernel_rows(dev, launches: dict) -> list[dict]:
     TP_FAMILY_FLASH) and the offset flash kernels at TP_CP_FLASH, against
     their plain versions, then timed in turns with PyTorch's SDPA (flash)
     beside the plain version and the bound (:func:`tp_flash_rows`)."""
-    from repro_torch.kernels.ssd import ops as sops, ref as sref
-
     gen = torch.Generator(device=dev).manual_seed(13)
     b, s, h, g, d = (TP_FLASH[k] for k in "bshgd")
     cp, fam = launches["cp"], launches["families"]
@@ -4272,14 +4309,30 @@ def tp_kernel_rows(dev, launches: dict) -> list[dict]:
          launches["flash_fwd"], launches["flash_bwd"]),
         ("cp llama3.2-3b", TP_CP_FLASH, cp["flash_fwd"], cp["flash_bwd"])]
         + [(f"tp {a}", x, fam[a], None) for a, x in TP_FAMILY_FLASH.items()])
-    b, c, qq, g, r, p, n = (TP_SSD[k] for k in ("b", "c", "q", "g", "r",
-                                                  "p", "n"))
+    rows.append(tp_ssd_row(dev, gen, TP_SSD, launches["ssd_diag"],
+                           "tp mamba2-2.7b"))
+    for row in rows:
+        print(f"tp timing {row['name']} at {row['cell']}'s process shape "
+              f"{json.dumps(row['shape'])}: kernel {row['ms']:.4f} ms, "
+              f"library {row['library_ms']}, plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); launches "
+              f"{json.dumps(row['launches'])} ({CARD})")
+    return rows
+
+
+def tp_ssd_row(dev, gen, shape: dict, launches: dict, cell: str) -> dict:
+    """ssd_diag at a process's Mamba2 shape against its plain version,
+    timed in turns beside the plain version and the bound."""
+    from repro_torch.kernels.ssd import ops as sops, ref as sref
+
+    b, c, qq, g, r, p, n = (shape[k] for k in ("b", "c", "q", "g", "r",
+                                                 "p", "n"))
     x, dt, cum, bm, cm = ssd_inputs(gen, b, c, qq, g, r, p, n,
                                     torch.bfloat16, dev)
     err = check_close("ssd_diag", sops.ssd_diag(
         x, dt, cum, bm, cm, r, out_dtype=torch.float32), sref.ssd_diag_ref(
         x, dt, cum, bm, cm, r, out_dtype=torch.float32),
-        "at a process's Mamba2 shape (40 heads)")
+        f"at a process's Mamba2 shape ({g * r} heads)")
     # zoo_timings' bound: the bytes once, the products on the tensor cores
     pairs = qq * (qq + 1) / 2
     h = g * r
@@ -4293,19 +4346,11 @@ def tp_kernel_rows(dev, launches: dict) -> list[dict]:
              cuda_ms(lambda: sref.ssd_diag_ref(*ins, r, torch.float32), 5),
              cuda_ms(lambda: sops.ssd_diag(*ins, r, out_dtype=torch.float32),
                      20)]
-    rows.append({"name": "ssd_diag", "cell": "tp mamba2-2.7b",
-                 "shape": dict(TP_SSD), "launches": launches["ssd_diag"],
-                 "max_abs_err": err,
-                 "ms": (turns[0] + turns[2]) / 2, "plain_ms": turns[1],
-                 "bound_ms": bnd, "bound_by": bby, "library_ms": None,
-                 "flops": tc_flops})
-    for row in rows:
-        print(f"tp timing {row['name']} at {row['cell']}'s process shape "
-              f"{json.dumps(row['shape'])}: kernel {row['ms']:.4f} ms, "
-              f"library {row['library_ms']}, plain {row['plain_ms']:.4f} ms, "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); launches "
-              f"{json.dumps(row['launches'])} ({CARD})")
-    return rows
+    return {"name": "ssd_diag", "cell": cell, "shape": dict(shape),
+            "launches": launches, "max_abs_err": err,
+            "ms": (turns[0] + turns[2]) / 2, "plain_ms": turns[1],
+            "bound_ms": bnd, "bound_by": bby, "library_ms": None,
+            "flops": tc_flops}
 
 
 def tp_flash_rows(dev, gen, cells: list) -> list[dict]:
@@ -4383,39 +4428,62 @@ def tp_flash_rows(dev, gen, cells: list) -> list[dict]:
     return rows
 
 
+def tp_want_heads(kernel: str, world: int) -> list:
+    """The heads of a process's flash_fwd ((q, kv)) or ssd_diag ((heads,))
+    calls at a model axis of ``world``: Llama 3.2 3B's 24 q heads dealt
+    (its 8 kv heads too where they divide, else one a q head by the index
+    map), Mamba2 2.7B's 80 dealt where they divide, else all of them."""
+    if kernel == "flash_fwd":
+        q = 24 // world
+        return [[q, 8 // world if 8 % world == 0 else q]]
+    return [[80 // world if 80 % world == 0 else 80]]
+
+
 def tp_report(outs: list[dict]) -> dict:
     """phase_tp's checks across its processes' results (:func:`_tp_worker`),
     printed; the phase's row."""
-    row = {"card": CARD, "model": TP_MODEL, "smoke": outs[0]["smoke"],
+    row = tp_report_serve(outs)
+    row.update(tp_report_families(outs))
+    return row
+
+
+def tp_report_serve(outs: list[dict]) -> dict:
+    """The checks of the full-width serve cells (TP_CELLS) and the Llama
+    train step across the processes, at the model axis they ran on."""
+    import dataclasses
+    world = outs[0]["world"]
+    where = f"data 1 x model {world}"
+    row = {"card": CARD, "model": world, "smoke": outs[0]["smoke"],
            "gloo_64mib_ms": [o["gloo_64mib_ms"] for o in outs]}
     print(f"tp: gloo's sum and max all-reduce, all-gather and reduce-scatter "
           f"of bf16 and f32 CUDA tensors exact, no upcast; a 64 MiB sum "
           f"all-reduce a process: {json.dumps(row['gloo_64mib_ms'])} ms "
           f"({CARD})")
     for arch in outs[0]["smoke"]:
-        print(f"tp smoke {arch} (f32) on data 1 x model 2 against one "
+        print(f"tp smoke {arch} (f32) on {where} against one "
               f"device: {json.dumps(outs[0]['smoke'][arch])}")
     for arch, (plen, kernel, (clen, steps)) in TP_CELLS.items():
-        cfg_layers = {"flash_fwd": 28, "ssd_diag": 64}[kernel]
         rows = [o["serve"][arch] for o in outs]
+        cfg_layers = rows[0]["layers"]
         for r, got in enumerate(rows):
             if got["launches"][kernel] != cfg_layers or \
                     got["kernel_calls"] != cfg_layers:
                 fail(f"tp {arch}: process {r} launched {kernel} "
                      f"{got['launches'][kernel]} times a generate "
                      f"({got['kernel_calls']} calls), not {cfg_layers}")
-            want = [[12, 4]] if kernel == "flash_fwd" else [[40]]
+            want = tp_want_heads(kernel, world)
             if [list(x) for x in got["heads"]] != want:
                 fail(f"tp {arch}: process {r} ran {kernel} at heads "
                      f"{got['heads']}, not {want}")
-        if rows[0]["tokens"] != rows[1]["tokens"]:
+        if any(g["tokens"] != rows[0]["tokens"] for g in rows):
             fail(f"tp {arch}: the processes returned other tokens")
         err = max(g["consistency"][0] for g in rows)
         top = max(g["consistency"][1] for g in rows)
         limit = CONSISTENCY_BF16_RTOL[arch]
         layer = [g["layer_err"] for g in rows if "layer_err" in g]
         cut = [g["f32_cut_err"] for g in rows if "f32_cut_err" in g]
-        print(f"tp {arch} bf16 on data 1 x model 2: prefill logits within "
+        print(f"tp {arch} bf16 at {cfg_layers} layers on {where}: prefill "
+              f"logits within "
               f"{max(g['logit_err'] for g in rows):.4g} of one device's "
               f"(limit {TP_BF16_LOGIT_RTOL[arch]:.4g}); "
               + (f"its first layer alone within {max(layer):.4g} (limit "
@@ -4443,11 +4511,13 @@ def tp_report(outs: list[dict]) -> dict:
                       "generate_prefill_ms_gloo", "generate_decode_ms_gloo",
                       "peak_gib")}
         row[arch].update(consistency=(err, top), launches=rows[0]["launches"],
-                         heads=rows[0]["heads"])
+                         heads=rows[0]["heads"], layers=cfg_layers)
     train = [o["train"] for o in outs]
     one_loss, one_norm = train[0]["one_device"]
     from repro_torch.configs import get
-    want = train_launches(get("llama3.2-3b"))
+    layers = outs[0]["train"]["layers"]
+    want = train_launches(dataclasses.replace(get("llama3.2-3b"),
+                                              n_layers=layers))
     for r, got in enumerate(train):
         if any(got["launches"][k] != n for k, n in want.items()):
             fail(f"tp train: process {r} launched {got['launches']}, not "
@@ -4459,7 +4529,8 @@ def tp_report(outs: list[dict]) -> dict:
                 TP_BF16_GRAD_NORM_RTOL * one_norm:
             fail(f"tp train: process {r}'s reduced-gradient norm "
                  f"{got['grad_norm']} against one device's {one_norm}")
-    print(f"tp train Llama 3.2 3B 4 x 2048 bf16 on data 1 x model 2: losses "
+    print(f"tp train Llama 3.2 3B at {layers} of 28 layers, 4 x 2048 bf16 "
+          f"on {where}: losses "
           f"{[g['loss'] for g in train]} against one device's {one_loss} "
           f"(limit {TP_BF16_LOSS_RTOL:.4g} relative); reduced-gradient norms "
           f"{[g['grad_norm'] for g in train]} against {one_norm} (limit "
@@ -4467,13 +4538,12 @@ def tp_report(outs: list[dict]) -> dict:
           f"process {json.dumps(train[0]['launches'])}; step ms (gloo "
           f"through the host) {[round(g['step_ms_gloo'], 1) for g in train]}"
           f"; peak GiB {[g['peak_gib'] for g in train]} ({CARD})")
-    row["train"] = {"losses": [g["loss"] for g in train],
+    row["train"] = {"layers": layers, "losses": [g["loss"] for g in train],
                     "one_device": [one_loss, one_norm],
                     "grad_norms": [g["grad_norm"] for g in train],
                     "launches": train[0]["launches"],
                     "step_ms_gloo": [g["step_ms_gloo"] for g in train],
                     "peak_gib": [g["peak_gib"] for g in train]}
-    row.update(tp_report_families(outs))
     return row
 
 
@@ -4497,8 +4567,14 @@ def tp_report_families(outs: list[dict]) -> dict:
               f"{TP_MODE_BATCH[mode]} rows of {TP_MODE_PROMPT}, on data 1 x "
               f"model 2 against one device: {json.dumps(got)}; flash calls "
               f"(q rows, heads, q_offset) a process {calls}")
-    cut_layers = {"deepseek-moe-16b": 28, "whisper-large-v3": 32,
-                  VLM: 12}
+    # flash_fwd a generate a process, one a prefill attention: DeepSeek's
+    # layers, Whisper's encoder layers (its 416-token decoder prefill takes
+    # the direct path), the VLM's layers and its cross-attention (one a
+    # unit of five)
+    depth = {arch: cell[2] for arch, cell in TP_FAMILY_CELLS.items()}
+    cut_layers = {"deepseek-moe-16b": depth["deepseek-moe-16b"],
+                  "whisper-large-v3": get("whisper-large-v3").enc_layers,
+                  VLM: depth[VLM] + depth[VLM] // 5}
     for arch in TP_FAMILY_CELLS:
         rows = [o["families"][arch] for o in outs]
         cfg = get(arch)
@@ -4597,10 +4673,12 @@ def phase_tp(dev) -> dict:
     Llama 3.2 3B and Mamba2 2.7B served on the mesh (Llama's prefill
     logits within 2^-4 of one device's, Mamba2's to its bf16 drift, its
     first layer to 2^-4 and its first 8 layers in f32 to 1e-4 through a
-    prefill and 8 decode steps; a generate's 28 flash_fwd at 12 q and 4 kv
-    heads and 64 ssd_diag at 40 heads a process, prefill/decode consistency
-    at the serve limits), and one Llama train step (loss within 2^-7 and
-    the reduced-gradient norm within 1e-3 of one device's, 56/28
+    prefill and 8 decode steps; a generate's flash_fwd at 12 q and 4 kv
+    heads and ssd_diag at 40 heads a process, one a layer, prefill/decode
+    consistency at the serve limits; since slice 16 at 14 and 32 of their
+    28 and 64 layers, TP_SERVE_LAYERS), and one Llama train step (since
+    slice 16 at 14 of 28 layers, TP_TRAIN_LAYERS: loss within 2^-7 and the
+    reduced-gradient norm within 1e-3 of one device's, 28/14
     flash_fwd/flash_bwd a process, peak GiB a process);
     (c) a process's kernel shapes against their plain versions, timed
     beside SDPA and their bounds.  Wall times of (a) and (b) are gloo's
@@ -4608,16 +4686,20 @@ def phase_tp(dev) -> dict:
 
     Slice 14 adds to each: (a) the f32 smoke Whisper, VLM, DeepSeek-MoE,
     Mixtral and Jamba, and a 3-head Llama variant in the "batch" and "cp"
-    modes; (b) DeepSeek-MoE 16B, Whisper large-v3 and the VLM at 2 units
-    served against one device, with their consistency on the mesh, and a
+    modes; (b) DeepSeek-MoE 16B, Whisper large-v3 and the VLM served
+    against one device (since slice 16 at 14 of 28 layers, 16 of 32
+    decoder layers and one unit: TP_FAMILY_CELLS), with their consistency
+    on the mesh, and a
     DeepSeek-MoE train step at 9 layers; (c) flash_fwd and flash_bwd with a
     query offset at a "cp" shape, and a process's flash_fwd at DeepSeek's
     and Whisper's heads."""
     torch.cuda.empty_cache()
     outs = tp_processes({"device": "cuda",
                          "smoke": list(TP_SMOKE) + list(TP_SMOKE_FAMILIES),
-                         "serve": list(TP_CELLS), "train": True,
-                         "modes": True, "families": list(TP_FAMILY_CELLS),
+                         "serve": list(TP_CELLS),
+                         "serve_layers": TP_SERVE_LAYERS, "train": True,
+                         "train_layers": TP_TRAIN_LAYERS, "modes": True,
+                         "families": list(TP_FAMILY_CELLS),
                          "moe_train": True},
                         ROOT / "build" / "chip_smoke" / "tp")
     row = tp_report(outs)
@@ -4633,6 +4715,48 @@ def phase_tp(dev) -> dict:
         families={a: {"generate": row[a]["launches"]["flash_fwd"]}
                   for a in TP_FAMILY_FLASH})
     row["kernels"] = tp_kernel_rows(dev, launches)
+    return row
+
+
+def phase_tp3(dev) -> dict:
+    """Slice 16: a model axis of 3 on three processes of the one card
+    (gloo carrying CUDA tensors), which divides neither Llama 3.2 3B's 8 kv
+    heads nor its 2048 + 32 cache, nor Mamba2 2.7B's 80 SSM heads.  At full
+    width, bf16, batch 4 x 2048 + 32 new tokens: both served on the mesh
+    at model 2's levels (Llama's prefill logits within 2^-4 of one
+    device's, Mamba2's to its bf16 drift, its first layer to 2^-4 and its
+    first 8 layers in f32 to 1e-4 through a prefill and 8 decode steps;
+    a generate's 28 flash_fwd at 8 q heads with one kv head each and 64
+    ssd_diag at all 80 heads a process; prefill/decode consistency at the
+    serve limits), one Llama train step at TP3_TRAIN_LAYERS (14 of 28
+    layers: loss within 2^-7, reduced-gradient norm within 1e-3 relative of
+    one device's; 28/14 flash_fwd/flash_bwd a process); then a process's kernel shapes against their plain versions,
+    timed beside SDPA and their bounds."""
+    torch.cuda.empty_cache()
+    outs = tp_processes({"device": "cuda", "smoke": [],
+                         "serve": list(TP_CELLS), "train": True,
+                         "train_layers": TP3_TRAIN_LAYERS, "modes": False,
+                         "families": [], "moe_train": False},
+                        ROOT / "build" / "chip_smoke" / "tp3", TP3_MODEL)
+    row = tp_report_serve(outs)
+    step = row["train"]["launches"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    b, s, h, g, d = (TP3_FLASH[k] for k in "bshgd")
+    rows = tp_flash_rows(dev, gen, [
+        ("tp3 llama3.2-3b", (b, s, s, h, g, d, True, 0),
+         {"generate": row["llama3.2-3b"]["launches"]["flash_fwd"],
+          "train_step": step["flash_fwd"]},
+         {"train_step": step["flash_bwd"]})])
+    rows.append(tp_ssd_row(dev, gen, TP3_SSD, {
+        "generate": row["mamba2-2.7b"]["launches"]["ssd_diag"]},
+        "tp3 mamba2-2.7b"))
+    for r in rows:
+        print(f"tp3 timing {r['name']} at {r['cell']}'s process shape "
+              f"{json.dumps(r['shape'])}: kernel {r['ms']:.4f} ms, library "
+              f"{r['library_ms']}, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); launches "
+              f"{json.dumps(r['launches'])} ({CARD})")
+    row["kernels"] = rows
     return row
 
 
@@ -4783,6 +4907,10 @@ def main() -> None:
     tp = phase_tp(dev)
     tp["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"tp": tp}))
+    t0 = time.perf_counter()
+    tp3 = phase_tp3(dev)
+    tp3["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"tp3": tp3}))
     print(json.dumps({"shapes": phase_shape_timings(dev, errs, serve,
                                                      train)}))
     t0 = time.perf_counter()

@@ -57,7 +57,7 @@ from repro_torch.configs.registry import ARCH_IDS, get, input_specs
 from repro_torch.launch import hlo_cost, roofline
 from repro_torch.launch.mesh import _mk, fake_world, make_production_mesh
 from repro_torch.models.layers import tree_leaves, tree_map
-from repro_torch.models.model import build_forward
+from repro_torch.models.model import build_forward, mark_cache
 from repro_torch.sharding import spmd
 from repro_torch.sharding.partition import (
     entry_axes, local_copy, mesh_coord,
@@ -197,6 +197,8 @@ def run_cell(arch, shape, multi_pod: bool = False,
         axes = _batch_axes(batch, sizes)
         step = build_step(cfg, shape.kind, mesh, axes, pos=shape.seq_len - 1)
         args = _local_args(specs, mesh)
+        if shape.kind == "decode":
+            mark_cache(args[1], cfg, shape.global_batch, shape.seq_len)
         if shape.kind == "decode" and not _reads_position(cfg):
             args = args[:-1] + (None,)
         held = _storages(args)

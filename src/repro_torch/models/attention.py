@@ -20,7 +20,10 @@ reference's mode (``flash.attn_mode`` of the global batch):
 * ``"heads"`` (the heads divide the ``model`` axis): the column block is
   this process's heads.  Where the kv heads do not divide the axis the
   rules leave K/V replicated: each process projects every kv head (the
-  prefill cache's layout) and attends with the groups of its own q heads.
+  prefill cache's layout) and attends with the groups of its own q heads,
+  by an index map where they do not line up with them (24 q and 8 kv heads
+  on 3: K/V expanded to one kv head a local q head, so the kernels run it
+  as MHA).
 * ``"batch"`` (else, where the global batch divides the whole mesh): the
   *flat* projection outputs move by an all-to-all from column blocks to
   blocks of batch rows (``batch_attn``: pod, data, then model), where a
@@ -34,12 +37,20 @@ reference's mode (``flash.attn_mode`` of the global batch):
   divide stays whole, as the reference's rules leave it: q is gathered
   too, and the output's column block is cut from it.
 
+Where the flat columns do not split over ``model`` (3 heads of 18 columns
+on 4), or the rows of a ``"batch"`` call do not divide it, the two modes
+take their part whole (:func:`_modal_whole`): the q/k/v projections of
+this process's rows (or its query positions, against every key) from whole
+weights, every head, and the output assembled over ``model``.
+
 Cross-attention runs the same modes without a mask, its K/V projected
 from the encoder's or the vision states.
 The decode caches follow ``cache_specs``: a self-attention cache's
 *sequence* is split over ``model`` (flash-decode), with every kv head on
 each process, and so is a cross cache whose length the axis divides (else
-it is whole on each).  A decode step gathers the step's q and new K/V row
+it is whole on each, and so is a self cache: the step writes its K/V row
+on every process and attends with the local heads, :func:`_decode_whole`).
+A split decode step gathers the step's q and new K/V row
 (small; flat columns, so any head count), the slot's owner writes the
 row, each process attends over its own positions, the partial results are
 combined from all-reduced maxima, sums and P·V, and this process's column
@@ -59,8 +70,7 @@ import torch
 
 from repro_torch.models.flash import _tp_size, attn_mode, flash_attention
 from repro_torch.models.layers import Param, rms_norm, rope
-from repro_torch.sharding.partition import SHARDED_EXECUTION
-from repro_torch.sharding.spmd import kv_groups
+from repro_torch.sharding.spmd import kv_groups, span
 
 NEG_INF = -2.0 ** 30
 FLASH_MIN_SEQ = 1024
@@ -120,33 +130,45 @@ def _wo(y: torch.Tensor, p: dict, mesh) -> torch.Tensor:
     return mesh.reduce(y @ wo)
 
 
+def _proj(mesh, w, shape, axes):
+    """A projection weight with its FSDP splits gathered, and whether its
+    columns split over ``model``; a weight they do not split goes through
+    :meth:`~repro_torch.sharding.spmd.Spmd.copy` (each process uses a part
+    of what it projects, so its gradient is summed over ``model``)."""
+    w = mesh.unshard(w, shape, axes)
+    split = bool(mesh.split(shape, axes, 1))
+    return (w if split else mesh.copy(w)), split
+
+
 def _kv_weights(p: dict, d: int, n_kv: int, head_dim: int, mesh):
-    """(wk, wv) with their FSDP splits gathered, and whether their columns
+    """(wk, wv) as :func:`_proj` gives them, and whether their columns
     split over ``model``."""
     kshape, kaxes = (d, n_kv * head_dim), ("embed", "kv_flat")
-    return (mesh.unshard(p["wk"], kshape, kaxes),
-            mesh.unshard(p["wv"], kshape, kaxes),
-            bool(mesh.split(kshape, kaxes, 1)))
+    wk, split = _proj(mesh, p["wk"], kshape, kaxes)
+    return wk, _proj(mesh, p["wv"], kshape, kaxes)[0], split
 
 
 def _weights(p: dict, d: int, n_heads: int, n_kv: int, head_dim: int, mesh):
-    """(wq, wk, wv) with their FSDP splits gathered, and whether the kv
-    columns split over ``model``."""
-    wq = mesh.unshard(p["wq"], (d, n_heads * head_dim),
-                      ("embed", "heads_flat"))
-    return (wq,) + _kv_weights(p, d, n_kv, head_dim, mesh)
+    """(wq, wk, wv, whether the q columns split over ``model``, whether the
+    kv columns do)."""
+    wq, qsplit = _proj(mesh, p["wq"], (d, n_heads * head_dim),
+                       ("embed", "heads_flat"))
+    wk, wv, ksplit = _kv_weights(p, d, n_kv, head_dim, mesh)
+    return wq, wk, wv, qsplit, ksplit
 
 
 def _tp_qkv(p, x, positions, theta, n_heads, n_kv, head_dim, mesh,
             kv_x=None):
     """This process's q heads and K/V on a mesh in ``"heads"`` mode: (q, k,
     v, sel).  ``sel`` is None where the kv heads split as the q heads (k/v
-    are this process's kv heads), else the [lo, hi) of every kv head's k/v
-    (all projected) that the local q heads read.  ``kv_x``: the states K/V
+    are this process's kv heads), else which of every kv head's k/v (all
+    projected) the local q heads read (:func:`~repro_torch.sharding.spmd.
+    kv_groups`: a block, or an index map, :func:`_pick`).  ``kv_x``: the
+    states K/V
     are projected from (cross-attention: no rope), else ``x``."""
     hl = n_heads // mesh.tp
-    wq, wk, wv, ksplit = _weights(p, x.shape[-1], n_heads, n_kv, head_dim,
-                                  mesh)
+    wq, wk, wv, _, ksplit = _weights(p, x.shape[-1], n_heads, n_kv,
+                                     head_dim, mesh)
     x = mesh.copy(x)
     kv_x = x if kv_x is None else mesh.copy(kv_x)
     q = _split_heads(x @ wq, hl, head_dim)
@@ -171,13 +193,17 @@ def _tp_qkv(p, x, positions, theta, n_heads, n_kv, head_dim, mesh,
 def _mode(mesh, n_heads: int, rows: int) -> str:
     """The reference's attention mode of a call whose local batch has
     ``rows`` (``attn_mode`` of the global batch)."""
-    mode = attn_mode(mesh.sizes, n_heads, mesh.global_batch(rows))
-    if mode == "batch" and rows % mesh.tp:
-        raise NotImplementedError(
-            f"{rows} rows a process in 'batch' mode on a model axis of "
-            f"{mesh.tp} (a batch split over other axes than the rules') "
-            f"{SHARDED_EXECUTION}")
-    return mode
+    return attn_mode(mesh.sizes, n_heads, mesh.global_batch(rows))
+
+
+def _by_blocks(mesh, d: int, n_heads: int, head_dim: int, mode: str,
+               rows: int) -> bool:
+    """Whether a ``"batch"`` or ``"cp"`` call moves column blocks by
+    all-to-all (:func:`_modal`): the flat q columns split over ``model``,
+    and in ``"batch"`` mode the axis divides the rows; else
+    :func:`_modal_whole`."""
+    return bool(mesh.split((d, n_heads * head_dim), ("embed", "heads_flat"),
+                           1)) and (mode == "cp" or rows % mesh.tp == 0)
 
 
 def _rows_of(mesh, y: torch.Tensor) -> torch.Tensor:
@@ -220,8 +246,8 @@ def _modal(p, x, kv_x, positions, theta, n_heads, n_kv, head_dim, mesh,
     """q, k, v (every head) in the ``"batch"`` or ``"cp"`` layout, and q's
     position offset.  ``kv_x`` None: self-attention (rope on q and k),
     else the states of a cross-attention (no rope)."""
-    wq, wk, wv, ksplit = _weights(p, x.shape[-1], n_heads, n_kv, head_dim,
-                                  mesh)
+    wq, wk, wv, _, ksplit = _weights(p, x.shape[-1], n_heads, n_kv,
+                                     head_dim, mesh)
     x = mesh.copy(x)
     src = x if kv_x is None else mesh.copy(kv_x)
     qf, off = _to_mode(mesh, x @ wq, mode, True, seq_q=True)
@@ -243,8 +269,62 @@ def _modal(p, x, kv_x, positions, theta, n_heads, n_kv, head_dim, mesh,
     return q, k, v, off
 
 
+def _modal_whole(p, x, kv_x, positions, theta, n_heads, n_kv, head_dim,
+                 mesh, mode, causal, window):
+    """Attention in the ``"batch"`` or ``"cp"`` mode where the column blocks
+    do not move (:func:`_by_blocks`): this process's part (its
+    :func:`~repro_torch.sharding.spmd.span` of the rows, or of the query
+    positions against every key) projected with every head from whole
+    weights (``Spmd.whole``), attended, and through ``wo``: the output
+    assembled over ``model`` and cut to this process's column block where
+    ``wo``'s rows split, else this part's rows of the output, assembled.
+    Returns (out, (k, v)): k/v of this process's rows in ``"batch"`` mode,
+    every row in ``"cp"`` mode."""
+    b, s, d = x.shape
+    dim = 0 if mode == "batch" else 1
+    n = x.shape[dim]
+    lo, hi = span(n, mesh.tp, mesh.r)
+    qshape, kshape = (d, n_heads * head_dim), (d, n_kv * head_dim)
+    wq = mesh.whole(p["wq"], qshape, ("embed", "heads_flat"))
+    wk = mesh.whole(p["wk"], kshape, ("embed", "kv_flat"))
+    wv = mesh.whole(p["wv"], kshape, ("embed", "kv_flat"))
+    x = mesh.copy(x)
+    src = x if kv_x is None else mesh.copy(kv_x)
+    if mode == "batch":
+        src = src[lo:hi]
+    q = _split_heads(x.narrow(dim, lo, hi - lo) @ wq, n_heads, head_dim)
+    k = _split_heads(src @ wk, n_kv, head_dim)
+    v = _split_heads(src @ wv, n_kv, head_dim)
+    if "q_norm" in p:
+        q = rms_norm(q, mesh.copy(p["q_norm"]))
+    if "k_norm" in p:
+        k = rms_norm(k, mesh.copy(p["k_norm"]))
+    off = lo if mode == "cp" else 0
+    if kv_x is None:
+        kpos = positions[lo:hi] if mode == "batch" else positions
+        q, k = rope(q, kpos[:, off:off + q.shape[1]], theta), \
+            rope(k, kpos, theta)
+    out = _attend(q, k, v, s, causal, window, off)
+    y = out.reshape(out.shape[0], out.shape[1], n_heads * head_dim)
+    oshape, oaxes = (n_heads * head_dim, d), ("heads_flat", "embed")
+    if mesh.split(oshape, oaxes, 0):
+        c = n_heads * head_dim // mesh.tp
+        y = mesh.assemble(y, dim, n, lo)[..., mesh.r * c:(mesh.r + 1) * c]
+        return _wo(y, p, mesh), (k, v)
+    wo = mesh.whole(p["wo"], oshape, oaxes)
+    return mesh.assemble(y @ wo, dim, n, lo, both=False), (k, v)
+
+
 def _pick(t: torch.Tensor, sel) -> torch.Tensor:
-    return t if sel is None else t[:, :, sel[0]:sel[1]].contiguous()
+    """The kv heads a process's q heads read (``sel``: :func:`~repro_torch.
+    sharding.spmd.kv_groups`' answer, None for all): a block, or by the
+    index map one kv head a local q head."""
+    if sel is None:
+        return t
+    lo, hi, idx = sel
+    if idx is None:
+        return t[:, :, lo:hi].contiguous()
+    return t[:, :, [lo + i for i in idx]]
 
 
 def _sdpa(q, k, v, mask):
@@ -295,6 +375,10 @@ def attention(p, x, positions, *, n_heads: int, n_kv: int, head_dim: int,
                                head_dim, mesh)
         out = _attend(q, _pick(k, sel), _pick(v, sel), s, causal, window, 0)
         return _merge_out(out, p, mesh), (k, v)
+    if not _by_blocks(mesh, x.shape[-1], n_heads, head_dim, mode,
+                      x.shape[0]):
+        return _modal_whole(p, x, None, positions, theta, n_heads, n_kv,
+                            head_dim, mesh, mode, causal, window)
     q, k, v, off = _modal(p, x, None, positions, theta, n_heads, n_kv,
                           head_dim, mesh, mode)
     out = _attend(q, k, v, s, causal, window, off)
@@ -318,10 +402,14 @@ def _attend(q, k, v, s: int, causal: bool, window, q_offset: int):
 def cache_rows(mesh, k: torch.Tensor, rows: int) -> torch.Tensor:
     """Prefill's K or V of a layer in the prefill cache's layout
     (``PREFILL_KV_AXES``: this process's batch rows): ``"batch"`` mode's
-    block of rows gathered over ``model``."""
+    block of rows gathered over ``model`` (its span, where the axis does
+    not divide the rows)."""
     if mesh is None or k.shape[0] == rows:
         return k
-    return mesh.all_gather(k, 0)
+    if k.shape[0] * mesh.tp == rows:
+        return mesh.all_gather(k, 0)
+    return mesh.assemble(k.detach(), 0, rows,
+                         span(rows, mesh.tp, mesh.r)[0], both=False)
 
 
 def cross_kv(p, kv_states, n_kv: int, head_dim: int, mesh=None):
@@ -349,11 +437,10 @@ def cross_kv(p, kv_states, n_kv: int, head_dim: int, mesh=None):
 
 
 def cross_attention(p, x, kv_states, *, n_heads: int, n_kv: int,
-                    head_dim: int, kv=None, mesh=None, kv_len: int = 0):
+                    head_dim: int, kv=None, mesh=None):
     """x (b, s, d) attends to ``kv_states`` (b, t, d), unmasked.  ``kv``
     short-circuits with precomputed (k, v) (the decode-time cache); on a
-    mesh that is this process's block of the cross cache, whose global
-    length is ``kv_len``."""
+    mesh that is this process's block of the cross cache."""
     s = x.shape[1]
     if mesh is None:
         q = _split_heads(x @ p["wq"], n_heads, head_dim)
@@ -363,13 +450,17 @@ def cross_attention(p, x, kv_states, *, n_heads: int, n_kv: int,
         return _merge_out(_attend(q, k, v, s, False, None, 0), p)
     if kv is not None:
         return _cross_cached(p, x, kv, n_heads=n_heads, n_kv=n_kv,
-                             head_dim=head_dim, kv_len=kv_len, mesh=mesh)
+                             head_dim=head_dim, mesh=mesh)
     mode = _mode(mesh, n_heads, x.shape[0])
     if mode == "heads":
         q, k, v, sel = _tp_qkv(p, x, None, 0.0, n_heads, n_kv, head_dim,
                                mesh, kv_x=kv_states)
         out = _attend(q, _pick(k, sel), _pick(v, sel), s, False, None, 0)
         return _merge_out(out, p, mesh)
+    if not _by_blocks(mesh, x.shape[-1], n_heads, head_dim, mode,
+                      x.shape[0]):
+        return _modal_whole(p, x, kv_states, None, 0.0, n_heads, n_kv,
+                            head_dim, mesh, mode, False, None)[0]
     q, k, v, _ = _modal(p, x, kv_states, None, 0.0, n_heads, n_kv,
                         head_dim, mesh, mode)
     out = _attend(q, k, v, s, False, None, 0)
@@ -416,9 +507,10 @@ def decode_attention(p, x, cache: KVCache, pos: int, *, n_heads: int,
     ``(out, cache)``.  On a mesh ``cache`` is this process's block of the
     sequence (module docstring)."""
     if mesh is not None:
-        return _decode_split(p, x, cache, pos, n_heads=n_heads, n_kv=n_kv,
-                             head_dim=head_dim, theta=theta, window=window,
-                             mesh=mesh)
+        fn = _decode_split if _seq_split(mesh, cache.k, "self") \
+            else _decode_whole
+        return fn(p, x, cache, pos, n_heads=n_heads, n_kv=n_kv,
+                  head_dim=head_dim, theta=theta, window=window, mesh=mesh)
     b = x.shape[0]
     q = _split_heads(x @ p["wq"], n_heads, head_dim)
     k = _split_heads(x @ p["wk"], n_kv, head_dim)
@@ -459,12 +551,46 @@ def _whole_heads(mesh, y: torch.Tensor, n: int, head_dim: int,
     return _split_heads(mesh.gather(y, 2) if split else y, n, head_dim)
 
 
-def _col_block(mesh, out: torch.Tensor) -> torch.Tensor:
-    """Every head's output (b, s, h, hd) as this process's flat column
-    block, the rows ``wo`` holds."""
+def mark_kv_len(buf: torch.Tensor, n: int) -> None:
+    """Record on a decode cache buffer (this process's block of it on a
+    mesh) ``n``, its sequence's global length.  The mark lives on the
+    buffer's storage, so every view of it (a layer's slot of the stacked
+    buffers) reads it, and it goes with the buffer: two caches of one
+    local length, one whole and one this process's block of a longer one,
+    keep their own layouts."""
+    buf.untyped_storage().kv_len = n
+
+
+def _seq_split(mesh, buf: torch.Tensor, kind: str) -> bool:
+    """Whether a decode cache buffer (b, t, ...) (``kind``: ``"self"`` or
+    ``"cross"``) is this process's block of a sequence split over
+    ``model`` (its global length t times the axis), else whole (t): by the
+    length :func:`mark_kv_len` recorded (``model.init_cache(mesh=)``)."""
+    if mesh.tp == 1:
+        return False
+    t = buf.shape[1]
+    n = getattr(buf.untyped_storage(), "kv_len", None)
+    if n is None:
+        raise ValueError(f"a {kind} decode cache on a mesh of model "
+                         f"{mesh.tp} without its global length: lay it out "
+                         "with model.init_cache(mesh=)")
+    if n not in (t, t * mesh.tp):
+        raise ValueError(f"a {kind} cache of {t} positions a process, not "
+                         f"{n} or {n} / {mesh.tp}")
+    return n != t
+
+
+def _out(mesh, out: torch.Tensor, p: dict) -> torch.Tensor:
+    """Every head's output (b, s, h, hd), the same on every process, through
+    ``wo``: this process's flat column block through its rows, summed over
+    ``model``, where they split; else the whole product on each."""
     b, s, h, hd = out.shape
+    shape, axes = (h * hd, mesh.cfg.d_model), ("heads_flat", "embed")
+    if not mesh.split(shape, axes, 0):
+        return out.reshape(b, s, h * hd) @ mesh.unshard(p["wo"], shape, axes)
     n = h * hd // mesh.tp
-    return out.reshape(b, s, h * hd)[..., mesh.r * n:(mesh.r + 1) * n]
+    return _wo(out.reshape(b, s, h * hd)[..., mesh.r * n:(mesh.r + 1) * n],
+               p, mesh)
 
 
 def _combine(mesh, q, k, v, valid, n_heads: int, head_dim: int):
@@ -493,9 +619,9 @@ def _decode_split(p, x, cache: KVCache, pos: int, *, n_heads, n_kv,
     position."""
     b = x.shape[0]
     tp, r = mesh.tp, mesh.r
-    wq, wk, wv, ksplit = _weights(p, x.shape[-1], n_heads, n_kv, head_dim,
-                                  mesh)
-    q = _whole_heads(mesh, x @ wq, n_heads, head_dim, True)
+    wq, wk, wv, qsplit, ksplit = _weights(p, x.shape[-1], n_heads, n_kv,
+                                          head_dim, mesh)
+    q = _whole_heads(mesh, x @ wq, n_heads, head_dim, qsplit)
     k = _whole_heads(mesh, x @ wk, n_kv, head_dim, ksplit)
     v = _whole_heads(mesh, x @ wv, n_kv, head_dim, ksplit)
     if "q_norm" in p:
@@ -514,27 +640,65 @@ def _decode_split(p, x, cache: KVCache, pos: int, *, n_heads, n_kv,
     j = r * tl + torch.arange(tl, device=x.device)
     valid = _valid(j, pos, slot, cache_len, ring, window)
     out = _combine(mesh, q, cache.k, cache.v, valid, n_heads, head_dim)
-    return _wo(_col_block(mesh, out), p, mesh), cache
+    return _out(mesh, out, p), cache
 
 
-def _cross_cached(p, x, kv, *, n_heads, n_kv, head_dim, kv_len, mesh):
-    """Cross-attention decode on a mesh against this process's block of
-    the cross cache: split over ``model`` (``kv_len`` positions in all),
-    the partial results combined as a self decode's; else whole, attended
-    on every process.  Every head, then this process's column block
-    through ``wo``."""
-    ck, cv = kv
-    t = ck.shape[1]
-    wq = mesh.unshard(p["wq"], (x.shape[-1], n_heads * head_dim),
-                      ("embed", "heads_flat"))
-    q = _whole_heads(mesh, x @ wq, n_heads, head_dim, True)
+def _decode_whole(p, x, cache: KVCache, pos: int, *, n_heads, n_kv,
+                  head_dim, theta, window, mesh):
+    """:func:`decode_attention` on a cache every process holds whole (its
+    length the ``model`` axis does not divide): the step's K/V row, every
+    kv head, written on each process, then attention over the cache with
+    this process's q heads, through its rows of ``wo``; every head where
+    the axis does not divide them.  The local q heads read their kv heads
+    in place: they take their own slots among the q heads of the kv heads
+    they span (:func:`~repro_torch.sharding.spmd.kv_groups`' [lo, hi)),
+    the other slots zero and their outputs dropped, so GQA runs over a
+    view of the cache where an index map would copy all of it a step."""
+    b = x.shape[0]
+    wq, wk, wv, qsplit, ksplit = _weights(p, x.shape[-1], n_heads, n_kv,
+                                          head_dim, mesh)
+    local = qsplit and n_heads % mesh.tp == 0
+    q = _split_heads(x @ wq, n_heads // mesh.tp, head_dim) if local else \
+        _whole_heads(mesh, x @ wq, n_heads, head_dim, qsplit)
+    k = _whole_heads(mesh, x @ wk, n_kv, head_dim, ksplit)
+    v = _whole_heads(mesh, x @ wv, n_kv, head_dim, ksplit)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
-    if t == kv_len or mesh.tp == 1:
-        out = _sdpa(q, ck, cv, None)
-    elif t * mesh.tp == kv_len:
+        k = rms_norm(k, p["k_norm"])
+    posv = torch.full((b, 1), int(pos), dtype=torch.int32, device=x.device)
+    q, k = rope(q, posv, theta), rope(k, posv, theta)
+    cache_len = cache.k.shape[1]
+    ring = window is not None and cache_len <= window
+    slot = pos % cache_len if ring else pos
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    j = torch.arange(cache_len, device=x.device)
+    mask = _valid(j, pos, slot, cache_len, ring, window)[None, None, None,
+                                                          None, :]
+    if not local:
+        return _out(mesh, _sdpa(q, cache.k, cache.v, mask), p), cache
+    lo, hi, _ = kv_groups(n_heads, n_kv, mesh.tp, mesh.r)
+    rep, hl = n_heads // n_kv, n_heads // mesh.tp
+    off = mesh.r * hl - lo * rep
+    qg = q.new_zeros(b, 1, (hi - lo) * rep, head_dim)
+    qg[:, :, off:off + hl] = q
+    out = _sdpa(qg, cache.k[:, :, lo:hi], cache.v[:, :, lo:hi], mask)
+    return _merge_out(out[:, :, off:off + hl], p, mesh), cache
+
+
+def _cross_cached(p, x, kv, *, n_heads, n_kv, head_dim, mesh):
+    """Cross-attention decode on a mesh against this process's block of
+    the cross cache: split over ``model``, the partial results combined as
+    a self decode's; else whole, attended on every process.  Every head,
+    then this process's column block through ``wo``."""
+    ck, cv = kv
+    wq, qsplit = _proj(mesh, p["wq"], (x.shape[-1], n_heads * head_dim),
+                       ("embed", "heads_flat"))
+    q = _whole_heads(mesh, x @ wq, n_heads, head_dim, qsplit)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+    if _seq_split(mesh, ck, "cross"):
         out = _combine(mesh, q, ck, cv, None, n_heads, head_dim)
     else:
-        raise ValueError(f"a cross cache of {t} positions a process, not "
-                         f"{kv_len} or {kv_len} / {mesh.tp}")
-    return _wo(_col_block(mesh, out), p, mesh)
+        out = _sdpa(q, ck, cv, None)
+    return _out(mesh, out, p)

@@ -28,8 +28,9 @@ reference's attention mode (``models/attention.py``), the MLPs column and
 row parallel, the vocab split over ``model``.  The encoder states are
 this process's rows, every frame, on each process of a ``model`` group.
 The decode caches follow ``cache_specs``: the cross K/V's frames are
-split over ``model`` where the axis divides them (the config's
-``n_audio_frames``), else whole on each process.
+split over ``model`` where the axis divides them, else whole on each
+process, whatever their number (``init_cache(n_frames=)`` keeps it on the
+SPMD context, where the decode step reads it).
 """
 from __future__ import annotations
 
@@ -116,7 +117,7 @@ def _cross(cfg: ArchConfig, p: dict, h: torch.Tensor, enc, kv=None,
            mesh=None):
     return A.cross_attention(p, h, enc, n_heads=cfg.n_heads,
                              n_kv=cfg.n_kv_heads, head_dim=cfg.hd, kv=kv,
-                             mesh=mesh, kv_len=cfg.n_audio_frames)
+                             mesh=mesh)
 
 
 def _norm(mesh, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

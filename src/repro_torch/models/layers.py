@@ -155,6 +155,9 @@ def mlp_apply(p: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
     wi = mesh.unshard(p["wi"], (d, ff), ("embed", "ffn"))
     wg = mesh.unshard(p["wg"], (d, ff), ("embed", "ffn"))
     wo = mesh.unshard(p["wo"], (ff, d), ("ffn", "embed"))
+    if not mesh.split((d, ff), ("embed", "ffn"), 1):
+        # columns the model axis does not divide: whole on each process
+        return (F.silu(x @ wg) * (x @ wi)) @ wo
     x = mesh.copy(x)
     h = F.silu(x @ wg) * (x @ wi)
     return mesh.reduce(h @ wo)

@@ -29,10 +29,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec as E
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import init_tree, logical_axes, tree_map
 from repro_torch.sharding.partition import (
-    entry_axes, local_copy, mesh_coord, sharding_for_shape,
+    local_copy, mesh_coord, sharding_for_shape,
 )
 
 
@@ -126,7 +127,8 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None,
     cross K/V hold ``n_frames`` encoder states (default: the config's
     ``n_audio_frames``).  On a ``mesh``, this process's block of each
     buffer as ``registry.cache_specs`` lays it out (``batch`` over the
-    data axes, an attention cache's sequence over ``model``)."""
+    data axes, an attention cache's sequence over ``model`` where it
+    divides it, else whole)."""
     dev = _device(device, mesh)
     if mesh is not None:
         return _local_cache(cfg, batch, seq_len, dev, n_frames, mesh)
@@ -190,47 +192,53 @@ def _map_cache(fn, tree, axes, cross: bool = False):
     return fn(tree, axes, cross)
 
 
+def _mark_leaf(buf: torch.Tensor, whole: torch.Tensor, axes) -> None:
+    """An attention cache leaf's global length on its block
+    (``attention.mark_kv_len``); an SSM leaf has none."""
+    if "kv_seq" in axes:
+        from repro_torch.models.attention import mark_kv_len
+        mark_kv_len(buf, whole.shape[axes.index("kv_seq")])
+
+
+def mark_cache(cache, cfg: ArchConfig, batch: int, seq_len: int,
+               n_frames: int = 0):
+    """Record on each attention buffer of this process's block of a decode
+    cache (``batch`` rows, context ``seq_len`` in all) its sequence's
+    global length, as :func:`init_cache` does on a mesh: the decode step
+    tells a whole cache (a length ``model`` does not divide) from this
+    process's block of a split one by it.  For blocks made another way
+    (the dry run's meta tensors); returns ``cache``."""
+    pairs = _map_cache(lambda w, a, cross: (w, a),
+                       abstract_cache(cfg, batch, seq_len, n_frames),
+                       cache_logical_axes(cfg, batch, seq_len, n_frames))
+    _map_cache(lambda buf, pair, cross: _mark_leaf(buf, *pair), cache, pairs)
+    return cache
+
+
 def _local_cache(cfg, batch, seq_len, dev, n_frames, mesh):
-    """:func:`init_cache`'s blocks on a mesh; raises where a buffer would
-    be split in a way the decode step does not execute (a self-attention
-    cache whose length the ``model`` axis does not divide; an
-    encoder-decoder's cross cache of other than the config's frames)."""
+    """:func:`init_cache`'s blocks on a mesh: a buffer's batch rows over
+    the axes its spec names, and on the SPMD context an attention cache's
+    sequence, the SSM state's heads and the conv history's columns where
+    the spec splits them (not where each process runs every SSM head,
+    ``ssm.every_head``); every other dim whole.  Each attention buffer
+    carries its global length (:func:`mark_cache`)."""
     from repro_torch.configs.registry import rules_for
     from repro_torch.sharding import spmd
-    from repro_torch.sharding.partition import axis_sizes, block_of
+    from repro_torch.sharding.partition import block_of
     ctx = spmd.context(mesh, cfg)
-    rules, coord, sizes = rules_for(cfg), mesh_coord(mesh), axis_sizes(mesh)
-    if ctx is not None and ctx.tp > 1 and cfg.family == "encdec" and \
-            n_frames and n_frames != cfg.n_audio_frames:
-        raise NotImplementedError(
-            f"{cfg.name}: a cross cache of {n_frames} frames on a sharded "
-            f"mesh (the decode step reads the config's {cfg.n_audio_frames};"
-            " ROADMAP, queue 1, item 12)")
+    rules, coord = rules_for(cfg), mesh_coord(mesh)
+    kept = () if ctx is None else ("kv_seq", "ssm_heads") if \
+        S.every_head(cfg, ctx.tp) else ("kv_seq", "ssm_heads", "conv_dim")
 
     def one(meta, axes, cross):
         spec = sharding_for_shape(tuple(meta.shape), axes, mesh, rules)
         shape = list(meta.shape)
         for dim, entry in enumerate(spec):
-            split = [a for a in entry_axes(entry) if sizes[a] > 1]
-            kept = axes[dim] == "batch" or (
-                ctx is not None and axes[dim] in ("kv_seq", "ssm_heads",
-                                                  "conv_dim"))
-            if split and not kept:
-                raise NotImplementedError(
-                    f"{cfg.name}: a decode cache of {tuple(meta.shape)} "
-                    f"split {spec} on {sizes} (item 12)")
-            shape[dim] //= block_of(entry, mesh, coord)[1]
-        if ctx is not None and ctx.tp > 1 and "kv_seq" in axes and \
-                not cross:
-            dim = axes.index("kv_seq")
-            if "model" not in entry_axes(spec[dim] if dim < len(spec)
-                                         else None):
-                raise NotImplementedError(
-                    f"{cfg.name}: a decode cache of {meta.shape[dim]} "
-                    f"positions does not split over the model axis of "
-                    f"{ctx.tp}: the sequence-split decode needs a length "
-                    "it divides (ROADMAP, queue 1, item 12)")
-        return torch.zeros(shape, dtype=meta.dtype, device=dev)
+            if axes[dim] == "batch" or axes[dim] in kept:
+                shape[dim] //= block_of(entry, mesh, coord)[1]
+        buf = torch.zeros(shape, dtype=meta.dtype, device=dev)
+        _mark_leaf(buf, meta, axes)
+        return buf
 
     return _map_cache(one, abstract_cache(cfg, batch, seq_len, n_frames),
                       cache_logical_axes(cfg, batch, seq_len, n_frames))

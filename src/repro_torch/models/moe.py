@@ -12,6 +12,12 @@ aux loss's means ``me`` and ``ce`` span every shard, their sums
 all-reduced over the axes that split the rows both ways
 (``Spmd.reduce_partial``: the data-parallel mean of the gradients then
 gives each process's rows the reference's aux gradient, not 1/n of it).
+Where the shards do not deal evenly over the batch's blocks (a shard
+across processes: 4 rows in one shard on ``pod`` 2 × ``data`` 3, whose 6
+halve to 1), each process gathers the batch's rows (``Spmd.gather`` over
+the axes that split them) and runs every shard, then keeps its rows: the
+aux loss is then whole on each process, and the gather's reduce-scatter
+with the data-parallel mean again gives the reference's gradients.
 The router is replicated over ``model``, so every process of a ``model``
 group routes the same tokens the same way.  Where the experts split over
 ``model`` (DeepSeek's 64, Jamba's 16) a process dispatches to its own
@@ -176,6 +182,14 @@ def moe_apply(p: dict, x: torch.Tensor, top_k: int,
     ``x`` is this process's rows (module docstring)."""
     b, s, d = x.shape
     e = p["router"].shape[-1]
+    if mesh is not None and mesh.data_shards(mesh.global_batch(b)) % \
+            mesh.row_blocks():
+        axes = mesh.batch_axes()
+        i, _ = mesh.block(axes)
+        with mesh.rows(()):
+            y, aux = moe_apply(p, mesh.gather(x, 0, axes), top_k,
+                               capacity_factor, mesh)
+        return y[i * b:(i + 1) * b], aux
     if mesh is None:
         n_sh, mean = 1, None
         router = p["router"]
@@ -233,16 +247,11 @@ def moe_apply(p: dict, x: torch.Tensor, top_k: int,
 
 def _shards(mesh, b: int, s: int):
     """(this process's data shards, the aux loss's mean) on a mesh: the
-    reference's ``_data_shards`` of the global batch, dealt over the
-    batch's blocks, and the means' sums all-reduced over the axes that
+    reference's ``_data_shards`` of the global batch, dealt evenly over
+    the batch's blocks, and the means' sums all-reduced over the axes that
     split the rows."""
-    from repro_torch.sharding.partition import SHARDED_EXECUTION
     blocks = mesh.row_blocks()
     n_all = mesh.data_shards(mesh.global_batch(b))
-    if n_all % blocks:
-        raise NotImplementedError(
-            f"{n_all} data shards of a batch dealt in {blocks} blocks "
-            f"{SHARDED_EXECUTION}")
     axes = mesh.batch_axes()
     total = n_all * (b * s // (n_all // blocks))
 

@@ -17,6 +17,13 @@ with the reference's dtype flow: where the reference mixes bf16 and f32
 operands, JAX promotes to f32, so the port casts to f32 explicitly (in a
 product through :func:`~repro_torch.core.tracer.einsum`/``matmul``, which
 the cost walker charges as jnp's one mixed-dtype ``dot_general``).
+
+On a mesh (an :class:`~repro_torch.sharding.spmd.Spmd` context) each
+process runs its heads where the ``model`` axis divides them (B/C groups
+that do not line up with them reach each head by an index map), else
+every head, as the rules leave the heads whole (Mamba2 2.7B's 80 on 3):
+then its span of ``d_in`` goes through ``out_proj``, summed over
+``model`` (:class:`_Deal`).
 """
 from __future__ import annotations
 
@@ -26,9 +33,16 @@ import torch.nn.functional as F
 from repro_torch.core.tracer import einsum, matmul, scan_loop
 from repro_torch.kernels.ssd.ops import ssd_diag
 from repro_torch.models.layers import Param
-from repro_torch.sharding.spmd import kv_groups
+from repro_torch.sharding.spmd import kv_groups, span
 
 CONV_W = 4
+
+
+def every_head(cfg, tp: int) -> bool:
+    """Whether each process of a model axis of ``tp`` runs every SSM head
+    of ``cfg`` (the axis does not divide them), its decode cache whole."""
+    return bool(cfg.ssm_state) and (
+        cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim) % tp != 0
 
 
 def ssm_params(d: int, *, expand: int, head_dim: int, n_state: int,
@@ -146,8 +160,12 @@ def ssd_chunked(x, dt, a, bm, cm, chunk: int, return_final: bool = False):
 
 class _Deal:
     """A mesh's re-deal of the SSM's columns for this process: the whole
-    in_proj and conv weights, and the column ranges of its heads and
-    groups."""
+    in_proj and conv weights, the column ranges of its heads and groups
+    (every head where ``model`` does not divide them: ``heads``, the
+    per-head parameters then through ``Spmd.copy``), the index map of its
+    heads' groups where they do not line up (``gidx``), and ``out``: this
+    process's span of ``d_in`` into ``out_proj`` where it runs every
+    head."""
 
     def __init__(self, p, d: int, head_dim: int, n_state: int,
                  n_groups: int, expand: int, mesh):
@@ -157,9 +175,12 @@ class _Deal:
         gn = n_groups * n_state
         self.proj_shape = (d, 2 * d_in + 2 * gn + h)
         self.conv_dim = d_in + 2 * gn
-        hl = h // mesh.tp
-        r = mesh.r
-        glo, ghi = kv_groups(h, n_groups, mesh.tp, r)
+        self.heads = h % mesh.tp == 0
+        if self.heads:
+            hl, r = h // mesh.tp, mesh.r
+            glo, ghi, self.gidx = kv_groups(h, n_groups, mesh.tp, r)
+        else:
+            hl, r, glo, ghi, self.gidx = h, 0, 0, n_groups, None
         self.hl, self.gl = hl, ghi - glo
         x0 = r * hl * head_dim
         xl = hl * head_dim
@@ -175,14 +196,32 @@ class _Deal:
                                     ("embed", "conv_dim"))
         self.proj_split = bool(mesh.split(self.proj_shape,
                                           ("embed", "conv_dim"), 1))
+        if not self.proj_split:         # every process uses a part of it
+            self.in_proj = mesh.copy(self.in_proj)
         cshape = (CONV_W, self.conv_dim)
-        self.conv_split = bool(mesh.split(cshape, (None, "conv_dim"), 1))
-        self.conv_w = self._whole(p["conv_w"], 1)
-        self.conv_b = self._whole(p["conv_b"], 0)
+        # the decode cache's conv history: this process's block of columns
+        # where the rules split them and it runs its heads, else whole
+        self.conv_split = self.heads and bool(
+            mesh.split(cshape, (None, "conv_dim"), 1))
+        self.conv_w = mesh.whole(p["conv_w"], cshape, (None, "conv_dim"))
+        self.conv_b = mesh.whole(p["conv_b"], cshape[1:], ("conv_dim",))
         self.out_proj = mesh.unshard(p["out_proj"], (d_in, d),
                                      ("ffn", "embed"))
+        self.out = None
+        per_head = {k: p[k] for k in ("a_log", "d_skip", "dt_bias")}
+        self.norm_w = p["norm_w"]
+        if not self.heads:
+            per_head = {k: mesh.copy(v) for k, v in per_head.items()}
+            self.norm_w = mesh.whole(p["norm_w"], (d_in,), ("ffn",))
+            self.out = span(d_in, mesh.tp, mesh.r)
+            if not mesh.split((d_in, d), ("ffn", "embed"), 0):
+                self.out_proj = mesh.copy(self.out_proj)[slice(*self.out)]
+        self.a_log, self.d_skip, self.dt_bias = (
+            per_head["a_log"], per_head["d_skip"], per_head["dt_bias"])
 
-    def _whole(self, t, dim: int):
+    def conv_whole(self, t, dim: int):
+        """The decode cache's conv history with every column (gathered
+        where this process holds its block)."""
         return self.mesh.gather(t, dim) if self.conv_split else t
 
     def project(self, x):
@@ -200,6 +239,18 @@ class _Deal:
     def cols(t, *ranges):
         return torch.cat([t[..., a:b] for a, b in ranges], dim=-1) \
             if len(ranges) > 1 else t[..., ranges[0][0]:ranges[0][1]]
+
+    def groups(self, t):
+        """B or C (..., local groups, n) with one group a local head where
+        the groups do not line up with the heads."""
+        return t if self.gidx is None else t[..., self.gidx, :]
+
+    def output(self, y):
+        """``y`` (..., this process's ``d_in`` columns) through ``out_proj``,
+        summed over ``model``."""
+        if self.out is not None:
+            y = y[..., self.out[0]:self.out[1]]
+        return self.mesh.reduce(matmul(y, self.out_proj))
 
     def conv_block(self, t):
         """This process's ``conv_dim`` block of a whole-column tensor."""
@@ -264,17 +315,18 @@ def _ssm_apply_split(p, x, *, head_dim, n_state, n_groups, expand, chunk,
     gn = deal.gl * n_state
     xs, bm, cm = (conv_out[..., :xl], conv_out[..., xl:xl + gn],
                   conv_out[..., xl + gn:])
-    dtv = _softplus(dt.float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
+    dtv = _softplus(dt.float() + deal.dt_bias)
+    a = -torch.exp(deal.a_log)
     xh = xs.reshape(b, l, deal.hl, head_dim)
-    res = ssd_chunked(xh, dtv, a, bm.reshape(b, l, deal.gl, n_state),
-                      cm.reshape(b, l, deal.gl, n_state), chunk,
+    res = ssd_chunked(xh, dtv, a,
+                      deal.groups(bm.reshape(b, l, deal.gl, n_state)),
+                      deal.groups(cm.reshape(b, l, deal.gl, n_state)), chunk,
                       return_final=return_cache)
     y, final = res if return_cache else (res, None)
-    y = y + p["d_skip"][None, None, :, None].to(y.dtype) * xh
+    y = y + deal.d_skip[None, None, :, None].to(y.dtype) * xh
     y = y.reshape(b, l, xl)
-    y = _rms(y, p["norm_w"], mesh=mesh) * F.silu(z)
-    out = mesh.reduce(y @ deal.out_proj).to(x.dtype)
+    y = _rms(y, deal.norm_w, mesh=mesh if deal.heads else None) * F.silu(z)
+    out = deal.output(y).to(x.dtype)
     if return_cache:
         tail = zxbcdt[:, l - (CONV_W - 1):]
         whole = tail[..., expand * d:expand * d + deal.conv_dim]
@@ -355,27 +407,31 @@ def _ssm_decode_split(p, x, cache, *, head_dim, n_state, n_groups, expand,
     deal = _Deal(p, d, head_dim, n_state, n_groups, expand, mesh)
     zxbcdt = deal.project(x[:, 0])                           # (b, proj)
     conv_in = zxbcdt[..., d_in:d_in + deal.conv_dim]         # every column
-    hist = torch.cat([deal._whole(cache["conv"], 2), conv_in[:, None]], dim=1)
+    hist = torch.cat([deal.conv_whole(cache["conv"], 2), conv_in[:, None]],
+                     dim=1)
     conv_out = torch.einsum("bwc,wc->bc", hist, deal.conv_w) + deal.conv_b
     conv_out = F.silu(conv_out)
     new_conv = deal.conv_block(hist[:, 1:])
     xs = deal.cols(conv_out, deal.conv[0])
-    bm = deal.cols(conv_out, deal.conv[1]).reshape(b, deal.gl, n_state)
-    cm = deal.cols(conv_out, deal.conv[2]).reshape(b, deal.gl, n_state)
+    bm = deal.groups(deal.cols(conv_out, deal.conv[1]).reshape(
+        b, deal.gl, n_state))
+    cm = deal.groups(deal.cols(conv_out, deal.conv[2]).reshape(
+        b, deal.gl, n_state))
     z = deal.cols(zxbcdt, deal.z)
     dt = deal.cols(zxbcdt, deal.dt)
-    dtv = _softplus(dt.float() + p["dt_bias"])               # (b,hl)
-    a = -torch.exp(p["a_log"])
+    dtv = _softplus(dt.float() + deal.dt_bias)               # (b,hl)
+    a = -torch.exp(deal.a_log)
     da = torch.exp(dtv * a)
     xh = xs.reshape(b, deal.hl, head_dim).float()
-    r = deal.hl // deal.gl
+    r = deal.hl // bm.shape[1]
     bh = bm.repeat_interleave(r, dim=1).float()
     ch = cm.repeat_interleave(r, dim=1).float()
     state = cache["state"] * da[..., None, None] + \
         (dtv[..., None] * xh)[..., None] * bh[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", state, ch)
-    y = y + p["d_skip"][None, :, None] * xh
+    y = y + deal.d_skip[None, :, None] * xh
     y = y.reshape(b, deal.hl * head_dim)
-    y = _rms(y, p["norm_w"], mesh=mesh) * F.silu(z).float()
-    out = mesh.reduce(matmul(y, deal.out_proj))[:, None].to(x.dtype)
+    y = _rms(y, deal.norm_w, mesh=mesh if deal.heads else None) * \
+        F.silu(z).float()
+    out = deal.output(y)[:, None].to(x.dtype)
     return out, {"state": state, "conv": new_conv}

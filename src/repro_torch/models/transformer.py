@@ -213,7 +213,7 @@ def _cross(cfg: ArchConfig, p: dict, x: torch.Tensor, vision, kv=None,
     hx = rms_norm(x, _norm_w(mesh, p["ln_x"]))
     return x + A.cross_attention(p["xattn"], hx, vision, n_heads=cfg.n_heads,
                                  n_kv=cfg.n_kv_heads, head_dim=cfg.hd, kv=kv,
-                                 mesh=mesh, kv_len=cfg.n_vision_tokens)
+                                 mesh=mesh)
 
 
 def _ffn(cfg: ArchConfig, li: int, p: dict, x: torch.Tensor, mesh=None):

@@ -13,7 +13,7 @@ the same prompts.  Each process serves its rows of the batch (the
 ``batch`` spec, declared to the model's SPMD context, which reads the
 global batch from it), prefill's K/V are re-homed into the decode buffers
 as ``registry.cache_specs`` lays them out (sequence-split, or whole where
-the ``model`` axis does not divide a cross cache), the greedy token
+the ``model`` axis does not divide a cache's length), the greedy token
 is the argmax over the vocab blocks with ``jnp.argmax``'s tie rule (the
 lowest index wins), and every process returns the whole batch's tokens.
 Every family runs so.

@@ -33,11 +33,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-#: the end of every raise for a config and mesh pair the port does not
-#: execute yet
-SHARDED_EXECUTION = "waits for the rest of the sharding substrate (ROADMAP, " \
-    "queue 1, item 12)"
-
 #: default rules for the production meshes (the reference's table):
 #:   params:  TP over "model" (heads / ffn / vocab), replicated over data/pod
 #:   activations: batch over ("pod","data"), model-parallel dims over "model"

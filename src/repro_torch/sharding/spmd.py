@@ -42,8 +42,18 @@ shards) reads it from :meth:`Spmd.batch_axes`: the axes a caller declared
 with :meth:`Spmd.rows` (the train step and the serve engine, which split
 the batch), else every ``batch`` axis of the rules.
 
-What does not execute raises ``NotImplementedError`` naming item 12
-(:func:`check_supported`).
+Where the mesh does not divide a dimension, the rules' filter
+(``partition._filter_divisible``) leaves it whole, as the reference's
+does, and the layer computes it whole on each process: every SSM head
+where the ``model`` axis does not divide them, the q/k/v projections of a
+``"batch"`` or ``"cp"`` call from whole weights where their flat columns do
+not split, a decode cache whose length the axis does not divide.  A
+region computed whole but used in part (this process's rows, positions
+or output columns) takes its inputs through :meth:`Spmd.copy` (a whole
+weight) or :meth:`Spmd.gather` (a split one), so the gradients sum over
+``model``; :meth:`Spmd.assemble` puts the parts back together.  GQA groups
+(or the SSM's B/C groups) that do not line up with a process's heads
+reach each local head by an index map (:func:`kv_groups`).
 """
 from __future__ import annotations
 
@@ -59,8 +69,8 @@ from repro_torch.sharding.collectives import (
     _all_to_all, _gather, _reduce_scatter,
 )
 from repro_torch.sharding.partition import (
-    SHARDED_EXECUTION, LogicalRules, PartitionSpec, axis_sizes, entry_axes,
-    is_replicated, sharding_for_shape, spec_for,
+    LogicalRules, PartitionSpec, axis_sizes, entry_axes, is_replicated,
+    sharding_for_shape, spec_for,
 )
 
 MODEL = ("model",)
@@ -175,52 +185,34 @@ def routes_rows(cfg, sizes: dict) -> bool:
 def check_supported(cfg, sizes: dict, rules: LogicalRules) -> bool:
     """Whether ``cfg`` runs on the mesh's SPMD context (True: the rules
     split a parameter, or experts route across a data mesh) or whole on
-    each process (False); raises ``NotImplementedError`` naming item 12 for
-    what does not execute: attention heads that the ``model`` axis does not
-    divide when the flat projection columns do not split over it either
-    (the ``"batch"`` and ``"cp"`` modes move column blocks), an SSM whose
-    heads it does not divide, and GQA groups (or the SSM's B/C groups) that
-    do not line up with the heads of a process."""
-    if not (shards_parameters(cfg, sizes, rules) or routes_rows(cfg, sizes)):
-        return False
-    where = f"{cfg.name} sharded on {sizes}"
-    tp = int(sizes.get("model", 1))
-    kinds = set(cfg.layer_kinds())
-    if kinds & {"g", "l", "s", "x"} or cfg.family == "encdec":
-        h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        if h % tp == 0:
-            for r in range(tp):
-                kv_groups(h, g, tp, r, where)
-        elif (h * hd) % tp or (g * hd) % tp:
-            raise NotImplementedError(
-                f"{where}: {h} heads (and {h * hd} and {g * hd} projection "
-                f"columns) on a model axis of {tp}: the 'batch' and 'cp' "
-                f"modes move column blocks {SHARDED_EXECUTION}")
-    if "m" in kinds:
-        h = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
-        if h % tp:
-            raise NotImplementedError(
-                f"{where}: {h} SSM heads do not divide the model axis of "
-                f"{tp} {SHARDED_EXECUTION}")
-        for r in range(tp):
-            kv_groups(h, cfg.ssm_groups, tp, r, where)
-    return True
+    each process (False).  Every config runs on every mesh: what the mesh
+    does not divide the rules leave whole (module docstring)."""
+    return shards_parameters(cfg, sizes, rules) or routes_rows(cfg, sizes)
 
 
-def kv_groups(h: int, g: int, tp: int, r: int, where: str = ""
-              ) -> tuple[int, int]:
-    """[lo, hi) of the groups (GQA's kv heads, the SSM's B/C groups) that
-    the heads of model position ``r`` read, ``h // tp`` heads a position;
-    raises where they do not map as one block (local head i to local group
-    i // (local heads / local groups))."""
+def kv_groups(h: int, g: int, tp: int, r: int
+              ) -> tuple[int, int, list[int] | None]:
+    """The groups (GQA's kv heads, the SSM's B/C groups) that the heads of
+    model position ``r`` read, ``h // tp`` heads a position: [lo, hi), and
+    None where they map as one block (local head i to local group i //
+    (local heads / local groups)), else each local head's group less
+    ``lo`` (the index map a caller expands the groups by)."""
     hl, rep = h // tp, h // g
     lo, hi = (r * hl) // rep, ((r + 1) * hl - 1) // rep + 1
-    if hl % (hi - lo) or any((r * hl + i) // rep - lo != i // (hl // (hi - lo))
-                             for i in range(hl)):
-        raise NotImplementedError(
-            f"{where}: {g} groups of {h} heads do not line up with {hl} "
-            f"heads a process {SHARDED_EXECUTION}")
-    return lo, hi
+    idx = [(r * hl + i) // rep - lo for i in range(hl)]
+    if hl % (hi - lo) == 0 and all(j == i // (hl // (hi - lo))
+                                   for i, j in enumerate(idx)):
+        return lo, hi, None
+    return lo, hi, idx
+
+
+def span(n: int, tp: int, r: int) -> tuple[int, int]:
+    """[lo, hi) of position ``r``'s part of ``n`` items dealt over ``tp``:
+    equal blocks where ``tp`` divides ``n``, else the first ``n % tp``
+    parts one longer."""
+    q, m = divmod(n, tp)
+    lo = r * q + min(r, m)
+    return lo, lo + q + (r < m)
 
 
 # ---------------------------------------------------------------------------
@@ -357,16 +349,44 @@ class Spmd:
     def unshard(self, w, shape, logical):
         """``w`` with every dim that a non-``model`` axis splits (FSDP's
         ``embed`` on ``data``) gathered: the gradient of the gathered
-        weight is reduce-scattered back.  ``model`` splits stay."""
+        weight is reduce-scattered back.  ``model`` splits stay: a dim
+        split over ``model`` and another axis together is gathered over
+        all of them as one block, then cut to this process's ``model``
+        block."""
         for dim in range(len(shape)):
             axes = self.split(shape, logical, dim)
-            other = tuple(a for a in axes if a != "model")
-            if other and "model" in axes:
-                raise NotImplementedError(
-                    f"a dim split over {axes} {SHARDED_EXECUTION}")
-            if other:
-                w = self.gather(w, dim, other)
+            if not any(a != "model" for a in axes):
+                continue
+            w = self.gather(w, dim, axes)
+            if "model" in axes:
+                n = shape[dim] // self.tp
+                w = w.narrow(dim, self.r * n, n)
         return w
+
+    def whole(self, w, shape, logical):
+        """``w`` whole, for a region every process computes whole and uses
+        in part: each split dim gathered (its gradient reduce-scattered
+        back), and where nothing splits it over ``model`` through
+        :meth:`copy` (its gradient summed over ``model``)."""
+        on_model = False
+        for dim in range(len(shape)):
+            axes = self.split(shape, logical, dim)
+            if axes:
+                w = self.gather(w, dim, axes)
+                on_model = on_model or "model" in axes
+        return w if on_model else self.copy(w)
+
+    def assemble(self, part, dim: int, n: int, lo: int, both: bool = True):
+        """The whole of a tensor along ``dim`` (length ``n``) from each
+        ``model`` process's part, this one's at [lo, lo + its length):
+        zero-padded and summed over ``model``.  ``both``: the gradient is
+        summed too (each process's backward covers a part of the whole);
+        else it passes through (what follows runs whole on every process)."""
+        if self.tp == 1:
+            return part
+        pad = [0, 0] * (part.dim() - dim - 1) + [lo, n - lo - part.shape[dim]]
+        full = torch.nn.functional.pad(part, pad)
+        return self.reduce_partial(full) if both else self.reduce(full)
 
     def block(self, axes=MODEL) -> tuple[int, int]:
         """(this process's index, number of processes) over ``axes``."""
@@ -377,7 +397,7 @@ class Spmd:
 def context(mesh, cfg, rules: LogicalRules | None = None) -> Spmd | None:
     """The :class:`Spmd` of ``mesh`` for ``cfg`` (its rules by default), or
     None off-mesh and where :func:`check_supported` says the config runs
-    whole on every process.  Raises for what does not execute.  Kept on the mesh object, a context a set of
+    whole on every process.  Kept on the mesh object, a context a set of
     rules; the first call for a mesh builds its groups
     (:func:`~repro_torch.launch.mesh.mesh_groups`, collective)."""
     if mesh is None or isinstance(mesh, Spmd):

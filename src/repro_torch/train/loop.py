@@ -30,9 +30,9 @@ reference is one controller over the mesh's devices.
   process's rows as the reference's data shards (``_data_shards`` of the
   global batch), its aux loss's means taken over every shard
   (``models/moe.py``): the step declares the axes that split the batch to
-  the model's SPMD context.  What does not execute raises
-  ``NotImplementedError`` naming item 12 of ROADMAP's queue 1
-  (``spmd.check_supported``).
+  the model's SPMD context.  Every config trains on every mesh: what the
+  mesh does not divide, the rules leave whole and the layers compute
+  whole (``sharding/spmd.py``).
 * :func:`make_manual_dp_train_step` is the reference's explicit DP step:
   per-process gradients, then the int8 error-feedback all-reduce
   (:func:`repro_torch.train.compression.compressed_psum`) leaf by leaf.

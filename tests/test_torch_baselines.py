@@ -33,7 +33,9 @@ from repro_torch.core.proxy_search import fit_combination
 from repro_torch.core.synthesize import synthesize
 from repro_torch.core.tracer import trace_fn
 from repro_torch.workloads import PROGRAMS, pipeline_traces
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 CONSTANTS = ("PEAK_FLOPS_BF16", "HBM_BW", "ICI_BW", "VPU_RATE", "TRANS_RATE",
              "GATHER_RATE", "SCAN_OVERHEAD")

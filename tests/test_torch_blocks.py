@@ -13,6 +13,9 @@ from repro_torch.core import blocks
 from repro_torch.core.tracer import compute_cost
 from repro_torch.kernels.proxy_blocks import ops
 from test_torch_cuda import MXU_RTOL, _bf16, _mxu_inputs, assert_mxu_close
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")

@@ -22,7 +22,9 @@ from repro_torch.core.trace_ir import TraceStore
 from repro_torch.sharding.collectives import LocalSim
 from repro_torch.workloads import PROGRAMS, pipeline_traces, \
     synthetic_rank_traces
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 TARGETS = ("stencil2d", "dp_train", "pipeline", "synthetic16")
 

@@ -28,7 +28,9 @@ from repro_torch.core.interproc import table_fingerprint
 from repro_torch.core.synthesize import _fit_cache_key, synthesize_corpus
 from repro_torch.core.trace_ir import TraceStore
 from repro_torch.workloads import synthetic_rank_traces
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 NAMES = tuple(SCENARIO_IDS) + ("halo-16",)
 #: per-scenario δ̄, port against reference on the same TraceStore

@@ -31,7 +31,9 @@ from repro_torch.core.corpus_store import (
 )
 from repro_torch.core.synthesize import synthesize_corpus
 from repro_torch.core.trace_ir import TraceStore
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: per-scenario δ̄, port against reference on the same store
 DELTA_ATOL = 1e-12

@@ -27,6 +27,9 @@ from repro_torch.kernels import tolerance
 from repro_torch.kernels.flash_attention import ops as fops, ref as fref
 from repro_torch.kernels.proxy_blocks import ops as bops, ref as bref
 from repro_torch.kernels.ssd import ops as sops, ref as sref
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: tests/test_kernels.py's sweeps, the smoke shapes, ragged lengths and the
 #: main path's shapes (Llama 3.2 3B and Mamba2 2.7B prefill at batch 4,

@@ -38,6 +38,9 @@ from repro_torch.models.model import (
     abstract_cache, build_forward, params_from_numpy,
 )
 from repro_torch.train.data import TokenDataset
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ATOL = 2e-5
 BF16_RTOL = 2.0 ** -4

@@ -20,7 +20,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ("torch_quickstart", "torch_pipeline_proxy",

@@ -16,6 +16,9 @@ from repro.core.events import dtype_bytes as jax_dtype_bytes
 from repro_torch.core import codegen, noise, trace_ir
 from repro_torch.core.events import METRIC_NAMES, dtype_bytes, is_comm
 from repro_torch.workloads import synthetic_rank_traces
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def test_metric_schema_is_the_reference_s():

@@ -18,6 +18,9 @@ from repro_torch.core.replay import ProxyProgram
 from repro_torch.core.synthesize import synthesize
 from repro_torch.core.trace_ir import TraceStore
 from repro_torch.workloads import synthetic_rank_traces
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"

@@ -23,8 +23,27 @@ import textwrap
 from pathlib import Path
 
 import numpy as np
+import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for a module's tests, torch's own count back
+    after them.  Every port test module asks for it (its ``pytestmark``):
+    under ``-n 6`` six workers share the CPU's cores, and torch's pool of a
+    thread a core made each small op of the smoke models wait on the other
+    workers' threads (the einsum and softmax of a smoke decode step: 7.8 ms
+    with 8 threads on a loaded CPU, 0.24 ms with 1)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SHIM = """\
 import jax._src.interpreters.batching as _batching

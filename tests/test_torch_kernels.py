@@ -19,6 +19,9 @@ from repro.kernels.proxy_blocks import ref as jax_ref
 from repro_torch.kernels import build
 from repro_torch.kernels.proxy_blocks import ops, ref
 from test_torch_cuda import _bf16, _mxu_inputs, assert_mxu_close
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 @pytest.mark.parametrize("reps", [1, 5, 7, 32])
 def test_mxu_ref_matches_jax_ref(reps):

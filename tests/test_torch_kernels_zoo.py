@@ -35,6 +35,9 @@ from repro_torch.kernels.flash_attention import ops as fops, ref as fref
 from repro_torch.kernels.ssd import ops as sops, ref as sref
 from repro_torch.models import flash as tflash
 from repro_torch.models import ssm as tssm
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: tests/test_kernels.py:16-36, with its tolerances
 FLASH_SWEEP = [

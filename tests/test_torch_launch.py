@@ -46,7 +46,9 @@ from repro_torch.launch import hlo_cost, report, roofline
 from repro_torch.launch.dryrun import build_step
 from repro_torch.models.layers import tree_leaves, tree_map
 from test_hlo_partition import _SIMPLE_HLO
-from test_torch_harness import ROOT, run_reference
+from test_torch_harness import ROOT, one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCHS = ("llama3.2-3b", "mamba2-2.7b", "deepseek-moe-16b")
 KINDS = ("train", "prefill", "decode")

@@ -46,7 +46,9 @@ from repro_torch.core.noise import NoiseConfig
 from repro_torch.core.replay import plan_mesh_sweep, submesh_axis_sizes
 from repro_torch.core.synthesize import synthesize
 from repro_torch.launch import mesh as mesh_mod
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
@@ -270,22 +272,24 @@ for line in sys.stdin:
 
 
 class GlooPool:
-    """``WORLD`` worker processes in one gloo group.  :meth:`run` executes
-    the same code in each (SPMD; ``rank`` and ``world`` are defined, names
-    persist between tasks) and returns each process's ``RESULT``."""
+    """``world`` (``WORLD`` by default) worker processes in one gloo group.
+    :meth:`run` executes the same code in each (SPMD; ``rank`` and
+    ``world`` are defined, names persist between tasks) and returns each
+    process's ``RESULT``."""
 
-    def __init__(self, root: Path):
+    def __init__(self, root: Path, world: int = WORLD):
         self.root = root
+        self.world = world
         self.n_tasks = 0
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
                                    if p]), OMP_NUM_THREADS="1")
         store = str(root / "store")
         self.procs, self.lines = [], []
-        for r in range(WORLD):
+        for r in range(world):
             err = open(root / f"worker{r}.stderr", "w")
             p = subprocess.Popen([sys.executable, "-c", WORKER, str(r),
-                                  str(WORLD), store], stdin=subprocess.PIPE,
+                                  str(world), store], stdin=subprocess.PIPE,
                                  stdout=subprocess.PIPE, stderr=err,
                                  text=True, env=env, cwd=str(ROOT))
             q: queue.Queue = queue.Queue()
@@ -304,7 +308,7 @@ class GlooPool:
     def run(self, code: str, timeout: float = TASK_TIMEOUT) -> list:
         self.n_tasks += 1
         outs = [str(self.root / f"task{self.n_tasks}_rank{r}.pt")
-                for r in range(WORLD)]
+                for r in range(self.world)]
         for p, out in zip(self.procs, outs):
             p.stdin.write(json.dumps({"code": code, "out": out}) + "\n")
             p.stdin.flush()

@@ -30,6 +30,9 @@ from repro_torch.models.layers import (
     Param, init_tree, rms_norm, rope, tree_leaves, tree_map,
 )
 from repro_torch.models.model import init_params, params_from_numpy
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: f32 against f32, rounding-level differences of other libraries (matmul
 #: and reduction orders, exp, sin/cos); every case also checks that its

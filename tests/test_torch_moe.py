@@ -25,6 +25,9 @@ import torch
 
 from repro.models import moe as JM
 from repro_torch.models import moe as M
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 F32_RTOL = 1e-5
 BF16_RTOL = 2.0 ** -4

@@ -34,7 +34,9 @@ from repro_torch.core.events import CommEvent, ComputeEvent, is_comm
 from repro_torch.core.replay import FidelityDistribution, NoiseConfig
 from repro_torch.core.synthesize import synthesize
 from repro_torch.core.trace_ir import TraceStore
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _TRACE_SRC = """\
 def _traces(n_ranks=4, reps=6, seed=7, ev=None):

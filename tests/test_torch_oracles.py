@@ -38,7 +38,9 @@ from repro_torch.core.events import CommEvent, ComputeEvent
 from repro_torch.core.grammar import Grammar, TerminalTable
 from repro_torch.core.synthesize import synthesize
 from repro_torch.core.trace_ir import TraceStore, compress_store
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: the zoo's streams at 4 ranks x 2 steps (the port's build), then seeded
 #: random streams
@@ -166,12 +168,14 @@ def test_columnar_front_half_equals_the_ports_oracle(stores, name):
         _grammar_state(g2, m2, ids2, reps2)
 
 
-@pytest.mark.parametrize("name", SCENARIO_IDS + ("random-0", "random-42"))
+@pytest.mark.parametrize("name", STORES)
 def test_synthesize_matches_the_oracle_and_the_references_delta(stores,
                                                                 name):
     """The port's columnar ``synthesize`` builds the oracle's merged program
     and compression ratio (bit-identical), and its δ̄ is the reference's
-    synthesize's on the same store within 1e-12."""
+    synthesize's on the same store within 1e-12: on every store, the random
+    ones whose fit overflows its integer polish too (seeds 1, 2, 3, 7, 11
+    and 23: both packages cast the same non-finite PGD rows to int64)."""
     _, st = stores[0][name]
     res = synthesize(store=st, name=name.replace("-", "_"), device="cpu")
     _, merged, ids, _ = frontend_reference.compress_rank_traces_reference(

@@ -32,6 +32,9 @@ from repro_torch.configs.registry import (
 from repro_torch.models.layers import tree_leaves
 from repro_torch.models.model import logical_axes_tree, param_tree
 from repro_torch.sharding import partition as PP
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 MESHES = {"dp4": {"data": 4}, "dp2xtp2": {"data": 2, "model": 2},
           "pod2xdp2xtp2": {"pod": 2, "data": 2, "model": 2}}

@@ -11,6 +11,9 @@ from repro_torch.core import blocks
 from repro_torch.core.progtable import ProgramTable, expand_symbols
 from repro_torch.core.tracer import compute_cost
 from repro_torch.sharding.collectives import LocalSim
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _compute_desc(i: int, unroll: int = 1):

@@ -7,6 +7,9 @@ import pytest
 from repro.core import blocks as jax_blocks
 from repro.core import proxy_search as jax_fit
 from repro_torch.core import proxy_search as fit
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _targets() -> dict[str, np.ndarray]:

@@ -35,7 +35,9 @@ from repro_torch.core.trace_ir import TraceStore
 from repro_torch.launch.hlo_cost import HloCost
 from repro_torch.serve.ann import BallTree, brute_force_nearest
 from repro_torch.serve.proxy_service import ProxyService, StaleServiceError
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: predict_profile, port against reference on the same store and chip
 PROFILE_RTOL = 1e-12

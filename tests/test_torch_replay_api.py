@@ -30,6 +30,9 @@ from repro_torch.core.events import CommEvent, ComputeEvent
 from repro_torch.core.synthesize import synthesize
 from repro_torch.workloads import synthetic_rank_traces
 from test_torch_cuda import MXU_RTOL
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _mk_traces(ev, n_ranks=4, reps=24, irregular=False):

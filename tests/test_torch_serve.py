@@ -16,6 +16,7 @@ factor (8) drops no token; ``tests/test_torch_moe.py`` holds the drops.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,8 +26,7 @@ import torch
 
 from repro.configs import get as jax_get, smoke as jax_smoke
 from repro.models.model import (
-    build_forward as jax_build_forward, init_cache as jax_init_cache,
-    init_params as jax_init_params,
+    init_cache as jax_init_cache, init_params as jax_init_params,
 )
 from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro_torch.configs import get, smoke
@@ -35,6 +35,9 @@ from repro_torch.models.model import (
     build_forward, init_cache, params_from_numpy,
 )
 from repro_torch.serve.engine import ServeEngine
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: prompt length per config: Llama's reaches FLASH_MIN_SEQ; Gemma's is
 #: longer than its smoke window (16), so local layers prefill into rings
@@ -65,7 +68,11 @@ def _configs(arch: str, dtype: str | None = None):
     return jc, tc
 
 
+@functools.lru_cache(maxsize=None)
 def _setup(arch: str, dtype: str | None = None, seed: int = 0):
+    """The configs, the reference's weights in both packages and the
+    prompts; kept for the module, as every test reads them and none
+    writes them."""
     jc, tc = _configs(arch, dtype)
     jp = jax_init_params(jc, seed)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
@@ -94,11 +101,20 @@ def _batch(tokens, frames, to):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_engine(arch: str, dtype: str | None = None) -> JaxServeEngine:
+    """The reference's engine for a config, kept for the module: its jitted
+    prefill and decode also run :func:`_jax_trace`, so each compiles once
+    for a shape."""
+    jc, _, jp, _, prompts = _setup(arch, dtype)
+    return JaxServeEngine(jc, jp, max_len=prompts.shape[1] + N_NEW)
+
+
 @pytest.mark.parametrize("arch", list(PROMPTS))
 def test_generate_gives_the_reference_tokens(arch):
     jc, tc, jp, tp, prompts = _setup(arch)
     plen = prompts.shape[1]
-    want = JaxServeEngine(jc, jp, max_len=plen + N_NEW).generate(prompts, N_NEW)
+    want = _jax_engine(arch).generate(prompts, N_NEW)
     got = ServeEngine(tc, tp, device="cpu", max_len=plen + N_NEW).generate(
         prompts, N_NEW)
     assert got.tokens.shape == (BATCH, N_NEW)
@@ -120,12 +136,16 @@ def _logits_trace(prefill, decode, init, params, prompts, n_steps, to_np,
     return out
 
 
-def _jax_trace(jc, jp, prompts, n_steps):
+def _jax_trace(jc, jp, prompts, n_steps, engine):
+    """The reference's prefill and greedy decode logits, through
+    ``engine``'s jitted steps."""
     frames = _frames(jc, prompts.shape[0])
-    prefill = jax.jit(lambda p, t: jax_build_forward(jc, "prefill")(
-        p, _batch(t, frames, jnp.asarray), jc))
-    decode = jax.jit(lambda p, c, t, pos: jax_build_forward(jc, "decode")(
-        p, c, {"tokens": t}, pos, jc))
+
+    def prefill(p, t):
+        return engine._prefill(p, _batch(t, frames, jnp.asarray))
+
+    def decode(p, c, t, pos):
+        return engine._decode(p, c, {"tokens": t}, pos)
 
     def init(b, n, pre):
         return jax.tree.map(JaxServeEngine._embed_cache,
@@ -158,7 +178,7 @@ def _port_trace(tc, tp, prompts, n_steps):
 @pytest.mark.parametrize("arch", list(PROMPTS))
 def test_prefill_and_decode_logits_match_reference(arch):
     jc, tc, jp, tp, prompts = _setup(arch)
-    want = _jax_trace(jc, jp, prompts, N_NEW)
+    want = _jax_trace(jc, jp, prompts, N_NEW, _jax_engine(arch))
     got = _port_trace(tc, tp, prompts, N_NEW)
     for step, (g, w) in enumerate(zip(got, want)):
         assert g.shape == w.shape == (BATCH, jc.padded_vocab)
@@ -172,7 +192,7 @@ def test_bf16_logits_match_reference(arch):
     """The smoke configs in bf16, the dtype of the full configs on the card
     (Llama's 1024-token prompt through flash, Mamba2's through the SSD)."""
     jc, tc, jp, tp, prompts = _setup(arch, "bfloat16")
-    want = _jax_trace(jc, jp, prompts, 3)
+    want = _jax_trace(jc, jp, prompts, 3, _jax_engine(arch, "bfloat16"))
     got = _port_trace(tc, tp, prompts, 3)
     for step, (g, w) in enumerate(zip(got, want)):
         top = np.abs(w).max()

@@ -28,6 +28,9 @@ from repro_torch.models.model import (
     build_forward, init_cache, params_from_numpy,
 )
 from repro_torch.serve.engine import ServeEngine
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

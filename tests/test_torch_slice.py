@@ -19,7 +19,9 @@ from repro_torch.core.synthesize import synthesize
 from repro_torch.core.trace_ir import TraceStore
 from repro_torch.workloads import synthetic_rank_traces
 from test_torch_cuda import MXU_RTOL
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 SIZES = (16, 64)
 #: the reference's δ̄ on the 64-rank synthetic trace (JAX 0.9.0, CPU)

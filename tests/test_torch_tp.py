@@ -44,8 +44,10 @@ from repro_torch.configs import get, smoke
 from repro_torch.configs.registry import ARCH_IDS, param_specs, rules_for
 from repro_torch.models.layers import tree_leaves
 from repro_torch.sharding import partition as PP
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
 from test_torch_mesh import GlooPool
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: the train level
 LOSS_RTOL = 1e-5
@@ -622,12 +624,15 @@ def test_input_and_cache_specs_equal_the_references(arch, monkeypatch):
 
 def test_attention_modes_and_what_raises_in_process():
     """``attn_mode``, ``tp_size`` and ``head_sharded`` equal the reference's
-    on stand-in meshes; the ``"batch"`` and ``"cp"`` modes execute (6 heads
-    on a model axis of 4), while heads whose flat projection columns do
-    not split over the axis (3 heads of 18 on 4) raise naming item 12, as
-    do GQA groups that do
-    not line up with a process's heads (24 q and 8 kv heads on a model
-    axis of 3); a mesh whose rules split nothing runs whole (None)."""
+    on stand-in meshes; nothing raises any more: the ``"batch"`` and
+    ``"cp"`` modes execute (6 heads on a model axis of 4), and so do heads
+    whose flat projection columns do not split over the axis (3 heads of
+    18 on 4: whole weights) and GQA groups that do not line up with a
+    process's heads (24 q and 8 kv heads on a model axis of 3, Llama 3.2
+    3B's own: each local q head's kv head by an index map, the reference's
+    GQA map ``q head // (q heads / kv heads)``); a mesh whose rules split
+    nothing runs whole (None).  ``tests/test_torch_tp_families.py`` holds
+    them on four processes to the reference."""
     import dataclasses
     from repro.models import attention as JA
     from repro.models import flash as JF
@@ -644,16 +649,19 @@ def test_attention_modes_and_what_raises_in_process():
                 assert F.attn_mode(sizes, h, b) == JF.attn_mode(jm, h, b)
     llama = smoke(get("llama3.2-3b"))
     six = dataclasses.replace(llama, n_heads=6)
-    assert spmd.check_supported(six, {"data": 1, "model": 4},
-                                rules_for(six)) is True
     odd = dataclasses.replace(llama, n_heads=3, n_kv_heads=1, head_dim=18)
-    with pytest.raises(NotImplementedError, match="column blocks.*item 12"):
-        spmd.check_supported(odd, {"data": 1, "model": 4}, rules_for(odd))
     gqa = dataclasses.replace(llama, n_heads=24, n_kv_heads=8)
-    with pytest.raises(NotImplementedError, match="line up.*item 12"):
-        spmd.check_supported(gqa, {"data": 1, "model": 3}, rules_for(gqa))
+    for cfg, sizes in ((six, {"data": 1, "model": 4}),
+                       (odd, {"data": 1, "model": 4}),
+                       (gqa, {"data": 1, "model": 3}),
+                       (get("llama3.2-3b"), {"data": 1, "model": 3}),
+                       (llama, {"data": 1, "model": 4})):
+        assert spmd.check_supported(cfg, sizes, rules_for(cfg)) is True
     assert spmd.check_supported(llama, {"data": 4}, rules_for(llama)) is False
-    assert spmd.check_supported(llama, {"data": 1, "model": 4},
-                                rules_for(llama)) is True
-    assert spmd.kv_groups(4, 2, 4, 3) == (1, 2)
-    assert spmd.kv_groups(24, 8, 2, 1) == (4, 8)
+    assert spmd.kv_groups(4, 2, 4, 3) == (1, 2, None)
+    assert spmd.kv_groups(24, 8, 2, 1) == (4, 8, None)
+    for r in range(3):
+        lo, hi, idx = spmd.kv_groups(24, 8, 3, r)
+        assert [lo + i for i in idx] == [(8 * r + i) // 3 for i in range(8)]
+    assert [spmd.span(10, 4, r) for r in range(4)] == [(0, 3), (3, 6),
+                                                       (6, 8), (8, 10)]

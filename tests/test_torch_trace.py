@@ -24,7 +24,9 @@ from repro_torch.core.synthesize import synthesize
 from repro_torch.core.trace_ir import TraceStore
 from repro_torch.sharding import collectives as C
 from repro_torch.workloads import PROGRAMS, pipeline_traces
-from test_torch_harness import run_reference
+from test_torch_harness import one_thread, run_reference
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 N = 4
 SCENARIO_NAMES = ("transformer-dp", "flash-ring", "ssm-decode", "moe-ep",

@@ -30,6 +30,9 @@ from repro_torch.kernels.flash_attention import ref as fref
 from repro_torch.kernels.ssd import ops as sops
 from repro_torch.kernels.ssd.ref import ssd_diag_ref
 from repro_torch.models.flash import flash_attention
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 # column indices: tensor FLOPs, element ops, bytes, transcendentals,
 # gathered elements, scan steps

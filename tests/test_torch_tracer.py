@@ -12,6 +12,9 @@ from jax import lax
 from repro.core.tracer import compute_cost as jax_cost
 from repro_torch.core import tracer
 from repro_torch.core.metrics import dtype_name, torch_dtype
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _jax_spec(shape, dtype):

@@ -41,6 +41,9 @@ from repro_torch.train.data import Prefetcher, TokenDataset
 from repro_torch.train.loop import (
     TrainOptions, Trainer, _InjectedFailure, _value_and_grad, make_train_step,
 )
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 #: (arch, batch, seq): Llama and Gemma at 1024 tokens, so attention takes
 #: the flash path (and Gemma's windowed layers the windowed backward)
@@ -499,18 +502,19 @@ def test_trainer_microbatching_equivalence(tmp_path):
 
 
 def test_mesh_paths_wait_for_the_mesh_slice(tmp_path):
-    """What still raises ``NotImplementedError`` naming item 12: the
-    config and mesh pairs the sharded execution does not run (3 heads of
-    18 on a ``model`` axis of 4, whose flat columns do not split over it;
-    a Mamba2 variant with 2 SSM heads on a ``model`` axis of 4); a mesh
-    given as a plain geometry, not a DeviceMesh, raises ``TypeError``
-    after the sharding check, which Llama on 2 × 2 passes since the
-    tensor-parallel slice and Mixtral's experts on 1 × 4, DeepSeek's
-    routing and override on dp 4, Whisper on a ``model`` axis of 2, 4
-    heads on a ``model`` axis of 8 (the ``"batch"`` or ``"cp"`` mode) and a
-    config that routes experts on a data size over 1 since the MoE slice
-    (``tests/test_torch_tp.py`` and ``tests/test_torch_tp_families.py``
-    run them on four processes).  What runs since
+    """Nothing raises ``NotImplementedError`` any more: a mesh given as a
+    plain geometry, not a DeviceMesh, raises ``TypeError`` after the
+    sharding check, which every config and mesh pair passes: Llama on 2 ×
+    2, Mixtral's experts on 1 × 4, DeepSeek's routing and override on dp
+    4, Whisper on a ``model`` axis of 2, 4 heads on a ``model`` axis of 8
+    (the ``"batch"`` or ``"cp"`` mode), a config that routes experts on a
+    data size over 1, and what the mesh does not divide: 3 heads of 18 on
+    a ``model`` axis of 4 (whole weights), a Mamba2 variant with 2 SSM
+    heads on 4 (every head on each process) and Llama 3.2 3B's 24 q and 8
+    kv heads on 3 (``tests/test_torch_tp.py``,
+    ``tests/test_torch_dp_train.py`` and
+    ``tests/test_torch_tp_families.py`` run them on four processes and hold
+    them to the reference).  What runs since
     the data-parallel slice: ``grad_compression="int8"`` is ignored by
     ``make_train_step``, as the reference ignores it (the same loss bits),
     and on a one-process gloo group the manual int8 DP step trains and
@@ -525,12 +529,11 @@ def test_mesh_paths_wait_for_the_mesh_slice(tmp_path):
         make_train_step(cfg, mesh={"data": 2, "model": 2}, device="cpu")
     mamba = dataclasses.replace(smoke(get("mamba2-2.7b")), ssm_head_dim=64)
     odd = dataclasses.replace(cfg, n_heads=3, n_kv_heads=1, head_dim=18)
-    for c, sizes, what in (
-            (odd, {"data": 1, "model": 4}, "column blocks"),
-            (mamba, {"data": 1, "model": 4}, "SSM heads")):
-        with pytest.raises(NotImplementedError, match="item 12") as e:
+    for c, sizes in ((odd, {"data": 1, "model": 4}),
+                     (mamba, {"data": 1, "model": 4}),
+                     (get("llama3.2-3b"), {"data": 1, "model": 3})):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make_train_step(c, sizes, device="cpu")
-        assert what in str(e.value), (c.name, str(e.value))
     for arch, sizes in (("deepseek-moe-16b", {"data": 4}),
                         ("mixtral-8x22b", {"data": 1, "model": 4}),
                         ("whisper-large-v3", {"data": 1, "model": 2}),

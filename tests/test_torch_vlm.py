@@ -14,6 +14,7 @@ self-attention and the ``x`` layer's cross-attention (1024 queries against
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,9 @@ from repro_torch.models.model import (
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.train.data import TokenDataset
 from repro_torch.train.loop import _value_and_grad
+from test_torch_harness import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ARCH = "llama-3.2-vision-90b"
 #: prompt lengths: a short one through the direct attention, and
@@ -52,7 +56,10 @@ LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 
 
+@functools.lru_cache(maxsize=None)
 def _setup(seed: int = 0):
+    """The configs and the reference's weights in both packages, kept for
+    the module: every test reads them and none writes them."""
     jc, tc = jax_smoke(jax_get(ARCH)), smoke(get(ARCH))
     jp = jax_init_params(jc, seed)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
@@ -112,11 +119,20 @@ def test_full_config_builds_on_meta():
     assert cache["unit"][4]["self"].k.shape == (20, 4, 2080, 8, 128)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_engine(seq: int) -> JaxServeEngine:
+    """The reference's engine at a prompt length, kept for the module: its
+    jitted prefill and decode also run :func:`_jax_trace`, so each
+    compiles once for a shape."""
+    jc, _, jp, _ = _setup()
+    return JaxServeEngine(jc, jp, max_len=seq + N_NEW)
+
+
 @pytest.mark.parametrize("seq", SEQS)
 def test_generate_gives_the_reference_tokens(seq):
     jc, tc, jp, tp = _setup()
     prompts = _prompts(jc, seq)
-    want = JaxServeEngine(jc, jp, max_len=seq + N_NEW).generate(prompts, N_NEW)
+    want = _jax_engine(seq).generate(prompts, N_NEW)
     got = ServeEngine(tc, tp, device="cpu", max_len=seq + N_NEW).generate(
         prompts, N_NEW)
     assert got.tokens.shape == (BATCH, N_NEW)
@@ -124,18 +140,19 @@ def test_generate_gives_the_reference_tokens(seq):
 
 
 def _jax_trace(jc, jp, prompts, vision, n_steps):
+    """The reference's prefill and greedy decode logits, through its
+    engine's jitted steps (:func:`_jax_engine`)."""
     b, plen = prompts.shape
-    logits, pre = jax.jit(lambda p, t, v: jax_build_forward(jc, "prefill")(
-        p, {"tokens": t, "vision_embeds": v}, jc))(
-        jp, jnp.asarray(prompts), jnp.asarray(vision))
+    engine = _jax_engine(plen)
+    logits, pre = engine._prefill(jp, {"tokens": jnp.asarray(prompts),
+                                       "vision_embeds": jnp.asarray(vision)})
     cache = jax.tree.map(JaxServeEngine._embed_cache,
                          jax_init_cache(jc, b, plen + n_steps), pre)
-    decode = jax.jit(lambda p, c, t, pos: jax_build_forward(jc, "decode")(
-        p, c, {"tokens": t}, pos, jc))
     out = [np.asarray(logits, np.float32)]
     for i in range(n_steps):
         tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
-        logits, cache = decode(jp, cache, tok, jnp.int32(plen + i))
+        logits, cache = engine._decode(jp, cache, {"tokens": tok},
+                                       jnp.int32(plen + i))
         out.append(np.asarray(logits, np.float32))
     return out
 

@@ -62,6 +62,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.models.layers import Param
 
 
@@ -198,7 +199,8 @@ def moe_apply(p: dict, x: torch.Tensor, top_k: int,
         router = mesh.unshard(p["router"], (d, e), ("embed", None))
     tl = b * s // n_sh
     xf = x.reshape(n_sh, tl, d)
-    r = route(dict(p, router=router), xf, top_k, capacity_factor, mean)
+    with spans.span("moe.route"):
+        r = route(dict(p, router=router), xf, top_k, capacity_factor, mean)
     cap = r["cap"]
     f = p["wi"].shape[-1] if mesh is None else mesh.cfg.d_ff_expert
     wi, wg, wo, lo, el = _experts(p, mesh, e, d, f)
@@ -211,6 +213,9 @@ def moe_apply(p: dict, x: torch.Tensor, top_k: int,
     if el < e:
         tok = tok[:, lo * cap:(lo + el) * cap]
         slot_ok = slot_ok[:, lo * cap:(lo + el) * cap]
+    if spans.enabled():         # the expert products' rows that hold a pick
+        spans.count("moe.slots_kept", slot_ok.sum())
+        spans.count("moe.slots", n_sh * el * cap)
     xe = _rows(xin, tok)
     xe = xe * slot_ok[..., None].to(xe.dtype)
     xe = xe.reshape(n_sh, el, cap, d)

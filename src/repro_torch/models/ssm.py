@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.core.tracer import einsum, matmul, scan_loop
 from repro_torch.kernels.ssd.ops import ssd_diag
 from repro_torch.models.layers import Param
@@ -123,7 +124,8 @@ def ssd_chunked(x, dt, a, bm, cm, chunk: int, return_final: bool = False):
 
     adt = dtc * a[None, None, None, :]                       # (b,c,q,h) <= 0
     cum = torch.cumsum(adt, dim=2)                           # (b,c,q,h)
-    y_diag = ssd_diag(xc, dtc, cum, bc, cc, r, out_dtype=torch.float32)
+    with spans.span("ssm.ssd_diag"):
+        y_diag = ssd_diag(xc, dtc, cum, bc, cc, r, out_dtype=torch.float32)
 
     # chunk-final states: S_c = sum_j exp(cum_end - cum_j) dt_j B_j ⊗ X_j
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)        # (b,c,q,h)
@@ -265,11 +267,20 @@ def ssm_apply(p, x, *, head_dim: int, n_state: int, n_groups: int,
               expand: int, chunk: int, return_cache: bool = False,
               mesh=None):
     """Full Mamba2 mixer on (b, l, d) → (b, l, d) [, decode cache]."""
-    if mesh is not None:
-        return _ssm_apply_split(p, x, head_dim=head_dim, n_state=n_state,
+    with spans.span("ssm.mixer"):
+        if mesh is not None:
+            return _ssm_apply_split(p, x, head_dim=head_dim,
+                                    n_state=n_state, n_groups=n_groups,
+                                    expand=expand, chunk=chunk,
+                                    return_cache=return_cache, mesh=mesh)
+        return _ssm_apply_whole(p, x, head_dim=head_dim, n_state=n_state,
                                 n_groups=n_groups, expand=expand,
-                                chunk=chunk, return_cache=return_cache,
-                                mesh=mesh)
+                                chunk=chunk, return_cache=return_cache)
+
+
+def _ssm_apply_whole(p, x, *, head_dim, n_state, n_groups, expand, chunk,
+                     return_cache):
+    """:func:`ssm_apply` without a mesh."""
     b, l, d = x.shape
     d_in = expand * d
     h = d_in // head_dim

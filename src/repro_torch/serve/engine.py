@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import torch_dtype, tree_map
@@ -90,7 +91,6 @@ class ServeEngine:
                 tuple(str(a) for a in mesh.mesh_dim_names))[0]
         self.max_len = max_len
         self.eos_id = eos_id
-        self.timers = StageTimers("prefill", "decode")
         self._prefill = build_forward(cfg, "prefill")
         self._decode = build_forward(cfg, "decode")
 
@@ -116,11 +116,12 @@ class ServeEngine:
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, n_new: int) -> GenResult:
         """prompts: (b, prompt_len) int32 (already padded to a bucket)."""
-        if self.mesh is None or self.ctx is None:
-            return self._generate(prompts, n_new)
-        spec = self._spec(np.shape(prompts))
-        with self.ctx.rows(entry_axes(spec[0] if spec else None)):
-            return self._generate(prompts, n_new)
+        with spans.span("serve.generate"):
+            if self.mesh is None or self.ctx is None:
+                return self._generate(prompts, n_new)
+            spec = self._spec(np.shape(prompts))
+            with self.ctx.rows(entry_axes(spec[0] if spec else None)):
+                return self._generate(prompts, n_new)
 
     def _generate(self, prompts: np.ndarray, n_new: int) -> GenResult:
         b, plen = prompts.shape
@@ -139,12 +140,14 @@ class ServeEngine:
         self._sync()
         t0 = time.perf_counter()
         batch = {"tokens": tokens, **self._extras(rows)}
-        logits, pre_cache = self._prefill(self.params, batch, self.cfg,
-                                          *mesh_args)
+        with spans.span("serve.prefill"):
+            logits, pre_cache = self._prefill(self.params, batch, self.cfg,
+                                              *mesh_args)
         self._sync()
         t1 = time.perf_counter()
 
-        cache = self.decode_cache(pre_cache, b)
+        with spans.span("serve.rehome"):
+            cache = self.decode_cache(pre_cache, b)
         del pre_cache
 
         tok = self._argmax(logits)
@@ -164,8 +167,6 @@ class ServeEngine:
                 break
         self._sync()
         t2 = time.perf_counter()
-        self.timers._acc["prefill"] += t1 - t0
-        self.timers._acc["decode"] += t2 - t1
         gen = np.stack(out, axis=1)
         if self.mesh is not None:      # every process: the whole batch's
             gen = gather_full(torch.from_numpy(gen), self._spec(

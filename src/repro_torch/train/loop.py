@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import param_specs, rules_for
 from repro_torch.device import resolve_device
@@ -84,8 +85,10 @@ def _value_and_grad(loss_fn, params, batch):
         with torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
-            loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            with spans.span("train.forward"):
+                loss = loss_fn(params, batch)
+            with spans.span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
     finally:
         for p in leaves:
             p.requires_grad_(False)

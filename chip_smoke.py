@@ -21,7 +21,7 @@ paths on the card, checking that each went through its kernels:
   layer alone); then the three smoke configs on the card against the CPU;
 - slice 5: ``Trainer.run`` on Llama 3.2 3B (through ``flash_fwd`` with the
   row log-sum-exp and ``flash_bwd``) and Mamba2 2.7B (through ``ssd_diag``
-  and the plain SSD backward) at full width and depth, bf16, random weights
+  and ``ssd_diag_bwd``) at full width and depth, bf16, random weights
   from seed 0, batch 4 x 2048 tokens, 3 steps each, with a check that 3
   steps on one fixed batch lower its loss each step; one training step of
   the three smoke configs on the card against the CPU; and a crash/resume
@@ -337,6 +337,7 @@ SASS_KERNELS = {"flash_attention/kernel.cu": ("flash_fwd_bf16_kernel",),
                 "flash_attention/backward.cu": ("flash_bwd_dkdv_bf16_kernel",
                                                 "flash_bwd_dq_bf16_kernel"),
                 "ssd/kernel.cu": ("ssd_diag_kernel",),
+                "ssd/backward.cu": ("ssd_bwd_kernel",),
                 "proxy_blocks/kernel.cu": ("mxu_iter_kernel",)}
 #: kernels that must run on wgmma fed by TMA, with no mma.sync
 SASS_WGMMA_TMA = ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
@@ -2480,7 +2481,7 @@ def train_launches(cfg) -> dict:
     attention layer of these cells takes flash but Whisper's decoder's
     (448 positions, below FLASH_MIN_SEQ)."""
     if cfg.family == "ssm":
-        return {"ssd_diag": 2 * cfg.n_layers}
+        return {"ssd_diag": 2 * cfg.n_layers, "ssd_diag_bwd": cfg.n_layers}
     n = cfg.enc_layers or cfg.n_layers
     return {"flash_fwd": 2 * n, "flash_bwd": n}
 #: smoke configs' training step, card against CPU (f32): the loss and the
@@ -2496,11 +2497,13 @@ TRAIN_GRAD_RTOL = 1e-4
 LSE_RTOL = 1e-4
 
 
-def check_train_kernels(dev) -> tuple[dict, float]:
+def check_train_kernels(dev) -> tuple[dict, dict]:
     """flash_bwd, the LSE output and the SSD gradient at the training
     path's shapes, against their plain versions.  Returns flash_bwd's
     max|kernel - plain| at the main shape and at Whisper's (by name), and
-    the plain SSD backward's ms a Mamba2 layer."""
+    the SSD backward's ms a Mamba2 layer, the kernel's and the plain
+    version's."""
+    from repro_torch.kernels import tolerance
     from repro_torch.kernels.flash_attention import ops as fops, ref as fref
     from repro_torch.kernels.ssd import ops as sops, ref as sref
 
@@ -2556,36 +2559,49 @@ def check_train_kernels(dev) -> tuple[dict, float]:
     ins = ssd_inputs(gen, *(sm[k] for k in ("b", "c", "q", "g", "r", "p",
                                              "n")), torch.bfloat16, dev)
     gy = torch.randn(ins[0].shape, generator=gen, device=dev)
-    grads = []
-    for fn in (sops.ssd_diag, sref.ssd_diag_ref):
-        leaves = [x.detach().requires_grad_(True) for x in ins]
-        y = fn(*leaves, r, torch.float32)
-        grads.append(torch.autograd.grad(y, leaves, gy))
-        del y, leaves
-    torch.cuda.synchronize()
-    for name, got, want in zip(("x", "dt", "cum", "B", "C"), *grads):
-        if not torch.isfinite(got.float()).all():
-            fail(f"ssd_diag gradient of {name} not finite")
-        if not torch.equal(got, want):
-            err = float((got.float() - want.float()).abs().max())
-            fail(f"ssd_diag gradient of {name} differs from plain autograd "
-                 f"by {err}")
-    print("kernel ssd_diag gradient at the Mamba2 2.7B shape (b 4, c 8, q "
-          "256, h 80, p 64, n 128, bf16): every input's gradient equal to "
-          "plain autograd through ssd_diag_ref, bit for bit")
-    del grads
 
-    def ssd_backward():
-        """What the SSD Function's backward runs: the plain version
-        recomputed under autograd and differentiated."""
+    def grads(fn):
         leaves = [x.detach().requires_grad_(True) for x in ins]
-        return torch.autograd.grad(sref.ssd_diag_ref(*leaves, r,
-                                                     torch.float32),
-                                   leaves, gy)
+        return torch.autograd.grad(fn(*leaves, r, torch.float32), leaves, gy)
 
-    ssd_ms = cuda_ms(ssd_backward, 5)
-    print(f"timing ssd_diag's plain backward at the Mamba2 2.7B shape: "
-          f"{ssd_ms:.3f} ms a layer")
+    got, want = grads(sops.ssd_diag), grads(sref.ssd_diag_ref)
+    ssd_err = max(
+        check_close("ssd_diag_bwd", a, w, f"gradient of {name} at the Mamba2 "
+                    "2.7B shape (b 4, c 8, q 256, h 80, p 64, n 128, bf16)")
+        for name, a, w in zip(("x", "dt", "cum", "B", "C"), got, want))
+    ssd_excess = max(tolerance.kernel_excess("ssd_diag_bwd", a, w)
+                     for a, w in zip(got, want))
+    again = sops.ssd_diag_bwd(*ins, r, gy)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("ssd_diag_bwd: two calls differ (not deterministic)")
+    print("kernel ssd_diag_bwd: every gradient within its limit of plain "
+          "autograd through ssd_diag_ref; two calls bit-identical")
+    del got, want, again
+
+    def plain_backward():
+        """What the SSD Function's backward ran before its kernel: the
+        plain version recomputed under autograd and differentiated."""
+        return grads(sref.ssd_diag_ref)
+
+    turns = [cuda_ms(lambda: sops.ssd_diag_bwd(*ins, r, gy), 10),
+             cuda_ms(plain_backward, 5),
+             cuda_ms(lambda: sops.ssd_diag_bwd(*ins, r, gy), 10)]
+    # the plain algorithm's transposed products, twice the forward's, over
+    # the causal pairs of each chunk; the bytes: the inputs and dY read,
+    # the five gradients (the inputs' dtypes) written
+    b, c, q, g, p, n = (sm[k] for k in ("b", "c", "q", "g", "p", "n"))
+    flops = 4.0 * b * c * q * (q + 1) / 2 * (g * n + g * r * p)
+    nbytes = (2 * sum(t.numel() * t.element_size() for t in ins)
+              + gy.numel() * gy.element_size())
+    bnd, bby = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    ssd_ms = {"kernel": min(turns[0], turns[2]), "plain": turns[1],
+              "max_abs_err": ssd_err, "worst_excess": ssd_excess,
+              "bound_ms": bnd, "bound_by": bby}
+    print(f"timing ssd_diag's backward at the Mamba2 2.7B shape in turns: "
+          f"kernel {turns[0]:.4f} ms, plain {turns[1]:.3f} ms, kernel "
+          f"{turns[2]:.4f} ms a layer; bound {bnd:.4f} ms ({bby}; "
+          f"{flops:.3g} FLOP, {nbytes / 1e6:.1f} MB), "
+          f"{100 * bnd / ssd_ms['kernel']:.1f}% of it")
     del ins, gy
     torch.cuda.empty_cache()
     return errs, ssd_ms
@@ -3089,7 +3105,9 @@ def phase_train(dev, errs: dict) -> tuple[dict, dict]:
     timing, kernel_us = flash_bwd_timing(dev)
     torch.cuda.empty_cache()
     rows = {arch: train_full(dev, arch) for arch in TRAIN_CELLS}
-    rows["mamba2-2.7b"]["ssd_backward_ms_a_layer"] = ssd_ms
+    rows["mamba2-2.7b"]["ssd_backward_ms_a_layer"] = ssd_ms["kernel"]
+    rows["mamba2-2.7b"]["ssd_plain_backward_ms_a_layer"] = ssd_ms["plain"]
+    rows["mamba2-2.7b"]["ssd_backward_check"] = ssd_ms
     rows["llama3.2-3b"]["flash_bwd_device_us"] = kernel_us
     train_smoke_configs(dev)
     for arch in ("llama3.2-3b", "deepseek-moe-16b", "whisper-large-v3"):
@@ -4937,6 +4955,17 @@ def main() -> None:
                  "replaces": "src/repro/models/flash.py:219",
                  "launches": train["llama3.2-3b"]["launches"]["flash_bwd"],
                  "max_abs_err": errs["flash_bwd"], **bwd})
+    ssd = train["mamba2-2.7b"]["ssd_backward_check"]
+    rows.append({"name": "ssd_diag_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/ssd/backward.cu",
+                 # no TPU kernel: the reference differentiates the diagonal
+                 # block's XLA einsums
+                 "replaces": "src/repro/models/ssm.py:100",
+                 "launches": train["mamba2-2.7b"]["launches"]["ssd_diag_bwd"],
+                 "max_abs_err": ssd["max_abs_err"],
+                 "worst_excess": ssd["worst_excess"], "ms": ssd["kernel"],
+                 "plain_ms": ssd["plain"], "bound_ms": ssd["bound_ms"],
+                 "bound_by": ssd["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
 

@@ -1,13 +1,14 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Each source (a ``kernel.cu``, and the flash backward's ``backward.cu``)
-has a plain C interface and is compiled by ``nvcc`` into
+Each source (a ``kernel.cu``, and the flash and SSD backwards'
+``backward.cu``) has a plain C interface and is compiled by ``nvcc`` into
 its own shared library, loaded with :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds).  Sources include the port's shared headers
-(``wgmma.cuh``, ``tma.cuh``) from ``INCLUDE_DIRS``.  Libraries go under
-``build/repro_torch/`` at the root of the checkout, named by a hash of the
-source, of every header in ``INCLUDE_DIRS`` and of the flags, so a changed
-source or header rebuilds and an unchanged one is reused.
+(``wgmma.cuh``, ``tma.cuh``, ``mma_sync.cuh``) from ``INCLUDE_DIRS``.
+Libraries go under ``build/repro_torch/`` at the root of the checkout,
+named by a hash of the source, of every header in ``INCLUDE_DIRS`` and of
+the flags, so a changed source or header rebuilds and an unchanged one is
+reused.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import: the first CUDA launch builds.
@@ -26,7 +27,7 @@ KERNELS_DIR = Path(__file__).resolve().parent
 #: every CUDA source of the port
 SOURCES = tuple(KERNELS_DIR / name for name in (
     "proxy_blocks/kernel.cu", "flash_attention/kernel.cu",
-    "flash_attention/backward.cu", "ssd/kernel.cu"))
+    "flash_attention/backward.cu", "ssd/kernel.cu", "ssd/backward.cu"))
 #: where ``#include "..."`` finds the port's shared headers
 INCLUDE_DIRS = (KERNELS_DIR,)
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"

@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -95,85 +97,9 @@ struct Smem {
   static constexpr int kBytes = kRed + kBI * kLdR * 4;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (4) bytes global -> shared, asynchronously; zero-filled if !in
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 // wait until at most kStages - 2 groups are in flight
 __device__ __forceinline__ void cp_async_wait_step() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2) : "memory");
-}
-
-// c (16x8 f32) += a (16x16 bf16) b (16x8 bf16)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c (16x8 f32) += a (16x8 tf32) b (8x8 tf32)
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x = hi + lo, hi its TF32 rounding and lo the TF32 rounding of the rest
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-}
-
-// c += a b with b exact in TF32 (bf16 values): the low product first
-__device__ __forceinline__ void mma_2xtf32(float* c, const uint32_t* ahi,
-                                           const uint32_t* alo,
-                                           const uint32_t* b) {
-  mma_tf32(c, alo, b);
-  mma_tf32(c, ahi, b);
-}
-
-// c += a b in 3xTF32: the two small cross products first, then hi.hi
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* ahi,
-                                           const uint32_t* alo,
-                                           const uint32_t* bhi,
-                                           const uint32_t* blo) {
-  mma_tf32(c, alo, bhi);
-  mma_tf32(c, ahi, blo);
-  mma_tf32(c, ahi, bhi);
-}
-
-// elements k and k + 1 (k even) of a bf16 row of n, zero past n or without
-// a row; one 32-bit load when n is even (the row is then 4-byte aligned)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* row, int k, int n) {
-  if (row == nullptr) return 0u;
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(row);
-  if ((n & 1) == 0)
-    return k < n ? __ldg(reinterpret_cast<const unsigned int*>(u + k)) : 0u;
-  const uint32_t lo = k < n ? __ldg(u + k) : 0u;
-  const uint32_t hi = k + 1 < n ? __ldg(u + k + 1) : 0u;
-  return lo | (hi << 16);
-}
-__device__ __forceinline__ float ld_one(const float* row, int k, int n) {
-  return row != nullptr && k < n ? __ldg(row + k) : 0.f;
 }
 
 template <typename T, int P>
@@ -252,37 +178,7 @@ ssd_diag_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int key = kb + nt * 8 + gq;
         brow[nt] = key < q ? bm + ((bc * q + key) * g + gi) * n : nullptr;
       }
-      if constexpr (kBf16) {
-#pragma unroll 4
-        for (int k = 0; k < n; k += 16) {
-          const int kc = k + 2 * tq;
-          const uint32_t a[4] = {ld_pair(c0, kc, n), ld_pair(c1, kc, n),
-                                 ld_pair(c0, kc + 8, n), ld_pair(c1, kc + 8, n)};
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const uint32_t b[2] = {ld_pair(brow[nt], kc, n),
-                                   ld_pair(brow[nt], kc + 8, n)};
-            mma_bf16(acc[nt], a, b);
-          }
-        }
-      } else {
-#pragma unroll 2
-        for (int k = 0; k < n; k += 8) {
-          const int kc = k + tq;
-          const float av[4] = {ld_one(c0, kc, n), ld_one(c1, kc, n),
-                               ld_one(c0, kc + 4, n), ld_one(c1, kc + 4, n)};
-          uint32_t ahi[4], alo[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(av[e], ahi[e], alo[e]);
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            uint32_t bhi[2], blo[2];
-            split_tf32(ld_one(brow[nt], kc, n), bhi[0], blo[0]);
-            split_tf32(ld_one(brow[nt], kc + 4, n), bhi[1], blo[1]);
-            mma_3xtf32(acc[nt], ahi, alo, bhi, blo);
-          }
-        }
-      }
+      mma_cbt<4>(acc, c0, c1, brow, n, tq);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int col = kb + nt * 8 + 2 * tq;
@@ -344,7 +240,7 @@ ssd_diag_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           const uint32_t b[2] = {
               static_cast<uint32_t>(__bfloat16_as_ushort(xa)) << 16,
               static_cast<uint32_t>(__bfloat16_as_ushort(xz)) << 16};
-          mma_2xtf32(acc[nt], ahi, alo, b);
+          mma_b_2xtf32(acc[nt], ahi, alo, b);
         } else {
           uint32_t bhi[2], blo[2];
           split_tf32(xa, bhi[0], blo[0]);

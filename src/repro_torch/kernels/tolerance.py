@@ -63,6 +63,23 @@ KERNEL_TOL = {
     ("ssd_diag", torch.float32): (4, 2.0 ** -14, 2.0 ** -20),
     # bf16 out: the same f32 sums, rounded once
     ("ssd_diag", torch.bfloat16): (1, 2.0 ** -14),
+    # the SSD backward (``ssd/backward.cu``), each of its five gradients
+    # against plain autograd through ``ssd_diag_ref``.  f32 (d(dt) and
+    # d(cum) always, every gradient with f32 inputs): the same f32 terms
+    # summed in another order, each f32 product in split TF32 to about
+    # 2^-22 of its terms.  An emulation of the kernel's arithmetic and tile
+    # order (tests/test_torch_kernels_zoo.py) stays within 0.04 of the limit
+    # with bf16 inputs at q 256 and 80 heads, and within 0.09 with f32
+    # inputs at the smoke shapes; the kernel on an H100 within 0.10 and
+    # 0.15.  The tensor floor is the forward's, for a score C . B that
+    # cancels where a dX row of the chunk's last keys has few terms.  One
+    # TF32 rounding of each f32 operand misses the limit by 20 times or more
+    ("ssd_diag_bwd", torch.float32): (4, 2.0 ** -14, 2.0 ** -20),
+    # bf16 (dX, dB, dC of bf16 inputs): the same f32 sums rounded once; two
+    # f32 values a rounding apart can round to neighbouring bf16 values, as
+    # the plain version's own f32 sums against f64 already do (0.99 of a
+    # one-ulp limit); the emulation and the kernel reach 0.50 of two ulps
+    ("ssd_diag_bwd", torch.bfloat16): (2, 2.0 ** -14),
     # f32: sums over s (dk, dv) or t (dq) terms in another order; the plain
     # version's own error against f64 reaches 0.09 of the row floor and, on
     # the cancelling rows, 0.18 of the tensor floor (s 2048, d 128, causal)

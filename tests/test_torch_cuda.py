@@ -1,7 +1,8 @@
 """The port's CUDA kernels (``mxu_iter``, ``stream_iter``, ``flash_fwd``,
-``flash_bwd``, ``ssd_diag``) against their plain versions, on a CUDA card
-(every test here skips without one), and the SSD gradient against plain
-autograd.  Imports no JAX, so it runs on a machine that has only PyTorch:
+``flash_bwd``, ``ssd_diag``, ``ssd_diag_bwd``) against their plain
+versions, on a CUDA card (every test here skips without one); the SSD
+gradient against plain autograd.  Imports no JAX, so it runs on a machine
+that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -s -m cuda tests/test_torch_cuda.py
 
@@ -13,8 +14,9 @@ and an accumulator that is not rescaled when the running maximum grows
 (flash, Llama 3.2 3B prefill), a skipped key tile in dK/dV and the D term
 dropped (the flash backward, Llama 3.2 3B training), a skipped key block
 and plain TF32, the low part's product dropped (SSD, Mamba2 2.7B prefill),
-one of a product's eight k-steps dropped and the last turn skipped
-(``mxu_iter``).
+a skipped row block of dX and the column sums of d(cum) dropped (the SSD
+backward, Mamba2 2.7B training), one of a product's eight k-steps dropped
+and the last turn skipped (``mxu_iter``).
 """
 from __future__ import annotations
 
@@ -69,10 +71,10 @@ FLASH_BWD_CASES = [
 #: faults planted in the flash backward, as (text, replacement)
 FLASH_BWD_MUTANTS = {
     # the dK/dV CTA of the 128-key tile holding t/2 walks no q tile
-    "skip_key_tile": ("  q_range(k0, kKeys, kRows, s, causal, window, &qlo, "
-                      "&qhi);\n",
-                      "  q_range(k0, kKeys, kRows, s, causal, window, &qlo, "
-                      "&qhi);\n"
+    "skip_key_tile": ("  q_range(k0, kKeys, kRows, s, causal, window, poff, "
+                      "&qlo, &qhi);\n",
+                      "  q_range(k0, kKeys, kRows, s, causal, window, poff, "
+                      "&qlo, &qhi);\n"
                       "  if (k0 == (t / 2) / kKeys * kKeys) qhi = qlo;\n"),
     # D = rowsum(dO o O) taken as 0
     "drop_d": ("    dvec[row] = p < s ? acc : 0.f;\n",
@@ -91,8 +93,31 @@ SSD_MUTANTS = {
                    "    const int jc = jb * kBJ;\n"
                    "    if (jb == n_jb - 2) continue;\n"),
     # plain TF32: the low part's product dropped (bf16 x, the serve path)
-    "tf32": ("  mma_tf32(c, alo, b);\n", ""),
+    "tf32": ("          mma_b_2xtf32(acc[nt], ahi, alo, b);\n",
+             "          mma_tf32(acc[nt], ahi, b);\n"),
 }
+#: faults planted in the SSD backward, as (text, replacement)
+SSD_BWD_MUTANTS = {
+    # U = m^T dY leaves out the row block just below each key block
+    # (I = J + 1): dX and d(dt) of the keys near J's end lose most of
+    # their terms
+    "skip_block": ("        mma_3xtf32(uacc[nt], ahi, alo, bhi, blo);\n",
+                   "        if (ib != 1) mma_3xtf32(uacc[nt], ahi, alo, bhi, "
+                   "blo);\n"),
+    # d(cum) without the column sums of G: the row sums alone
+    "drop_colsum": ("      dcum[k] = s - dt[k] * ddt[k];\n",
+                    "      dcum[k] = s;\n"),
+}
+#: the SSD gradient's f32-input cases: the small ones of SSD_CASES, groups
+#: of one head (g = h, r = 1: the mesh trainer's re-indexed groups) and a
+#: state of 20 (B and C rows not whole 16-byte pieces)
+SSD_GRAD_F32_CASES = SSD_CASES[:-1] + [(1, 2, 32, 4, 1, 16, 16),
+                                       (2, 2, 64, 8, 1, 32, 64),
+                                       (1, 2, 96, 1, 4, 16, 20)]
+#: bf16: groups of one head, the second a process's 40 Mamba2 heads as
+#: their own groups, and a state of 20
+SSD_GRAD_BF16_CASES = [(1, 2, 32, 4, 1, 16, 16), (1, 2, 256, 40, 1, 64, 128),
+                     (1, 2, 96, 2, 2, 16, 20)]
 #: faults planted in the mxu_iter kernel, as (text, replacement)
 MXU_MUTANTS = {
     # the last of a product's eight k16 steps dropped, every turn
@@ -341,29 +366,104 @@ def test_cuda_flash_bwd_mutants_fail_the_limit(tmp_path, monkeypatch, window):
     assert worst["skip_key_tile"] > 10 and worst["drop_d"] > 10
 
 
+def _ssd_grads(ins, r, gy, fn) -> tuple:
+    """The five input gradients of ``fn(*ins, r, f32)`` against ``gy``."""
+    leaves = [x.detach().requires_grad_(True) for x in ins]
+    return torch.autograd.grad(fn(*leaves, r, torch.float32), leaves, gy)
+
+
+def _ssd_grad_excess(got, want) -> dict:
+    """Each gradient's worst error over its ``ssd_diag_bwd`` limit."""
+    out = {}
+    for name, a, w in zip(("x", "dt", "cum", "B", "C"), got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.isfinite(a.float()).all()
+        out[name] = _excess("ssd_diag_bwd", a, w)
+    return out
+
+
+def _check_ssd_gradient(b, c, q, g, r, p, n, dtype):
+    """``ssd_diag`` under autograd: the kernel's forward (the bits of
+    ``ssd_diag_block``), one launch of the hand-written backward, every
+    gradient within its limit of plain autograd through ``ssd_diag_ref``,
+    and the same bits from a second call."""
+    ins = _ssd_inputs(q + r + 1, b, c, q, g, r, p, n, dtype)
+    gy = torch.randn(ins[0].shape, generator=torch.Generator("cuda")
+                     .manual_seed(q), device="cuda")
+    sops.reset_counts()
+    leaves = [x.detach().requires_grad_(True) for x in ins]
+    y = sops.ssd_diag(*leaves, r, torch.float32)
+    got = torch.autograd.grad(y, leaves, gy)
+    assert sops.LAUNCHES == {"ssd_diag": 1, "ssd_diag_bwd": 1}
+    with torch.no_grad():
+        assert torch.equal(y, sops.ssd_diag_block(*ins, r, torch.float32))
+    want = _ssd_grads(ins, r, gy, sref.ssd_diag_ref)
+    worst = _ssd_grad_excess(got, want)
+    print(f"{(b, c, q, g, r, p, n)} {str(dtype)[6:]}: worst error over the "
+          f"limit {worst}")
+    assert max(worst.values()) <= 1
+    again = sops.ssd_diag_bwd(*ins, r, gy)
+    assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+        "two calls differ: the backward must be deterministic"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c,q,g,r,p,n", SSD_CASES)
 def test_cuda_ssd_gradient_matches_plain_autograd(b, c, q, g, r, p, n):
-    """``ssd_diag`` under autograd: the kernel's forward, and the gradient
-    of every input equal to plain autograd through ``ssd_diag_ref`` (the
-    backward recomputes exactly that)."""
-    ins = _ssd_inputs(q + r + 1, b, c, q, g, r, p, n, torch.bfloat16)
+    """bf16 inputs (the model's) at every SSD_CASES shape, the Mamba2 2.7B
+    training shape last: within ``ssd_diag_bwd``'s limits (the backward
+    was plain autograd, and equal to it, before it had a kernel)."""
+    _check_ssd_gradient(b, c, q, g, r, p, n, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,q,g,r,p,n,dtype", [
+    case + (torch.float32,) for case in SSD_GRAD_F32_CASES] + [
+    case + (torch.bfloat16,) for case in SSD_GRAD_BF16_CASES])
+def test_cuda_ssd_gradient_f32_and_one_head_groups(b, c, q, g, r, p, n,
+                                                   dtype):
+    """f32 inputs (the smoke configs), groups of one head and a state
+    that is not a multiple of 8."""
+    _check_ssd_gradient(b, c, q, g, r, p, n, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_bwd_mutants_fail_the_limit(tmp_path, monkeypatch):
+    """The backward and two faulty copies of its source at the Mamba2 2.7B
+    training shape: the kernel within every gradient's limit; the skipped
+    row block more than 10 times outside it in dX and the dropped column
+    sums in d(cum) (the CPU emulation: thousands of times)."""
+    r = 80
+    ins = _ssd_inputs(11, 4, 8, 256, 1, r, 64, 128, torch.bfloat16)
     gy = torch.randn(ins[0].shape, generator=torch.Generator("cuda")
-                     .manual_seed(q), device="cuda")
-    grads = []
-    for fn in (sops.ssd_diag, sref.ssd_diag_ref):
-        leaves = [x.detach().requires_grad_(True) for x in ins]
-        y = fn(*leaves, r, torch.float32)
-        grads.append(torch.autograd.grad(y, leaves, gy))
-        if fn is sops.ssd_diag:
-            with torch.no_grad():
-                assert torch.equal(y, sops.ssd_diag_block(*ins, r,
-                                                          torch.float32))
+                     .manual_seed(3), device="cuda")
+    want = _ssd_grads(ins, r, gy, sref.ssd_diag_ref)
+    worst = _with_mutants(
+        tmp_path, monkeypatch, sops, SSD_BWD_MUTANTS,
+        lambda: _ssd_grad_excess(sops.ssd_diag_bwd(*ins, r, gy), want),
+        attr="BWD_SOURCE")
+    print(f"worst error over its limit {worst}")
+    assert max(worst["kernel"].values()) <= 1
+    assert worst["skip_block"]["x"] > 10
+    assert worst["drop_colsum"]["cum"] > 10
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_train_step_runs_the_ssd_backward(tmp_path):
+    """One smoke Mamba2 training step on the card: the backward kernel once
+    per SSM layer (and the forward twice: the step and, with remat, its
+    recompute; once without)."""
+    from repro_torch.configs import get, smoke
+    from repro_torch.train.loop import Trainer
+
+    cfg = smoke(get("mamba2-2.7b"))
+    trainer = Trainer(cfg, global_batch=2, seq_len=64, device="cuda",
+                      ckpt_dir=tmp_path)
+    sops.reset_counts()
+    trainer.run(1)
     torch.cuda.synchronize()
-    for got, want in zip(*grads):
-        assert got.dtype == want.dtype and got.shape == want.shape
-        assert torch.isfinite(got.float()).all()
-        assert torch.equal(got, want)
+    fwd = (2 if cfg.remat else 1) * cfg.n_layers
+    assert sops.LAUNCHES == {"ssd_diag": fwd, "ssd_diag_bwd": cfg.n_layers}
 
 
 @pytest.mark.cuda
@@ -411,7 +511,9 @@ def test_cuda_zoo_empty_inputs_launch_nothing_and_views_are_copied():
     ins = _ssd_inputs(0, 0, 1, 8, 1, 2, 16, 16, torch.float32)
     assert sops.ssd_diag_block(*ins, 2).numel() == 0
     assert fops.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
-    assert sops.LAUNCHES == {"ssd_diag": 0}
+    gy = torch.zeros(ins[0].shape, device="cuda")
+    assert all(x.numel() == 0 for x in sops.ssd_diag_bwd(*ins, 2, gy))
+    assert sops.LAUNCHES == {"ssd_diag": 0, "ssd_diag_bwd": 0}
     q, k, v = _flash_inputs(2, 1, 65, 2, 1, 16, torch.float32)
     flat = torch.zeros(q.numel() + 1, device="cuda")
     flat[1:] = q.flatten()

@@ -186,7 +186,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     ins = [torch.from_numpy(a) for a in _ssd_inputs(1, 1, 2, 8, 1, 2, 16, 16)]
     assert torch.equal(sops.ssd_diag_block(*ins, 2), sref.ssd_diag_ref(*ins, 2))
     assert fops.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
-    assert sops.LAUNCHES == {"ssd_diag": 0}
+    assert sops.LAUNCHES == {"ssd_diag": 0, "ssd_diag_bwd": 0}
 
 
 def test_non_cpu_non_cuda_tensors_raise():
@@ -421,6 +421,172 @@ def test_ssd_f32_limit_holds_where_c_dot_b_cancels():
           f"3xTF32 vs plain {emul:.3g}")
     assert plain <= 0.5 and emul <= 0.5
     assert row_only > 1, "the row limit alone misses the cancelling row"
+
+
+def _mm(eq: str, a: torch.Tensor, z: torch.Tensor, z_exact: bool,
+        mode: str = "split") -> torch.Tensor:
+    """``einsum(eq, a, z)`` as the SSD backward's tensor cores compute it:
+    ``a`` (f32) split into TF32 hi + lo; ``z`` exact in TF32 (bf16 values:
+    lo.z + hi.z) or split too (``_split3``).  ``mode`` "tf32" rounds each
+    operand to TF32 once instead."""
+    if mode == "tf32":
+        return torch.einsum(eq, _tf32(a), _tf32(z))
+    if not z_exact:
+        return _split3(a, z, eq)
+    ah = _tf32(a)
+    return torch.einsum(eq, _tf32(a - ah), z) + torch.einsum(eq, ah, z)
+
+
+def _ssd_bwd_emulation(xc, dtc, cum, bc, cc, r, gy, *, mode="split",
+                       mutant=None, block=64, heads=40):
+    """The SSD backward's arithmetic (ssd/backward.cu) in PyTorch: S = C B^T
+    (exact bf16 products summed in f32), dM = dY . X and U = m^T dY on the
+    tensor cores (``_mm``), U summed over 64-row blocks I in order, the
+    row sums of G over 64-key blocks J in order, dS summed over each
+    slice of 40 heads and dB, dC taken per slice (dC per key block) and
+    summed, then d(cum) = row sums - dt d(dt).  ``mutant``: "skip_block"
+    leaves the row block I = J + 1 out of each key block's U,
+    "drop_colsum" leaves dt d(dt) out of d(cum)."""
+    b, c, q, h, p = xc.shape
+    g, n = bc.shape[3], bc.shape[4]
+    exact = xc.dtype == torch.bfloat16
+    x = xc.float().reshape(b, c, q, g, r, p)
+    dy = gy.float().reshape(b, c, q, g, r, p)
+    bf, cf = bc.float(), cc.float()
+    s = (torch.einsum("bcign,bcjgn->bcgij", cf, bf) if exact
+         else _mm("bcign,bcjgn->bcgij", cf, bf, False, mode))
+    cumg, dtg = cum.reshape(b, c, q, g, r), dtc.reshape(b, c, q, g, r)
+    iq = torch.arange(q)
+    seen = (iq[:, None] >= iq[None, :])[:, :, None, None]          # (i, j)
+    lm = torch.exp(torch.where(seen, cumg[:, :, :, None] - cumg[:, :, None],
+                               -torch.inf))                       # (b,c,i,j,g,r)
+    m = s.permute(0, 1, 3, 4, 2)[..., None] * lm
+    dm = _mm("bcigrp,bcjgrp->bcijgr", dy, x, exact, mode) * seen
+    blk = iq // block
+    u = torch.zeros(b, c, q, g, r, p)
+    for i in range(int(blk.max()) + 1):
+        mi = m[:, :, blk == i]
+        if mutant == "skip_block":
+            mi = mi * (blk != i - 1)[:, None, None].float()
+        u = u + _mm("bcijgr,bcigrp->bcjgrp", mi, dy[:, :, blk == i], False,
+                    mode)
+    dtj = dtg[:, :, None]
+    dx = (dtg[..., None] * u).reshape(b, c, q, h, p).to(xc.dtype)
+    ddt = (x * u).sum(-1).reshape(b, c, q, h)
+    gm = dm * m * dtj
+    rows = torch.zeros(b, c, q, g, r)
+    for j in range(int(blk.max()) + 1):
+        rows = rows + gm[:, :, :, blk == j].sum(3)
+    dcum = rows.reshape(b, c, q, h)
+    if mutant != "drop_colsum":
+        dcum = dcum - dtc * ddt
+    dsh = dm * lm * dtj
+    db, dcs = torch.zeros(b, c, q, g, n), torch.zeros(b, c, q, g, n)
+    for h0 in range(0, r, heads):
+        ds = torch.zeros(b, c, q, q, g)
+        for k in range(h0, min(r, h0 + heads)):
+            ds = ds + dsh[..., k]
+        db = db + _mm("bcijg,bcign->bcjgn", ds, cf, exact, mode)
+        for j in range(int(blk.max()) + 1):
+            dcs = dcs + _mm("bcijg,bcjgn->bcign", ds[:, :, :, blk == j],
+                            bf[:, :, blk == j], exact, mode)
+    return dx, ddt, dcum, db.to(bc.dtype), dcs.to(cc.dtype)
+
+
+def _ssd_plain_grads(ins, r, gy) -> tuple:
+    leaves = [x.detach().requires_grad_(True) for x in ins]
+    return torch.autograd.grad(sref.ssd_diag_ref(*leaves, r, torch.float32),
+                               leaves, gy)
+
+
+def _ssd_bwd_excess(got, want) -> dict:
+    out = {}
+    for name, a, w in zip(("x", "dt", "cum", "B", "C"), got, want):
+        assert a.dtype == w.dtype and float(w.float().abs().max()) > 0.1
+        out[name] = tolerance.kernel_excess("ssd_diag_bwd", a, w)
+    return out
+
+
+def test_ssd_bwd_split_tf32_holds_the_limits_and_fails_its_mutants():
+    """At the Mamba2 2.7B training block (q 256, p 64, n 128, bf16 in) with
+    80 heads in two slices: the backward's split-TF32 arithmetic holds
+    every gradient within its ``ssd_diag_bwd`` limit of plain autograd;
+    one TF32 rounding of each f32 operand misses the f32 gradients' limit
+    by more than 10 times, a skipped row block of U misses dX's and the
+    dropped column sums d(cum)'s by thousands of times."""
+    r = 80
+    x, dt, cum, bm, cm = _ssd_inputs(29, 1, 1, 256, 1, r, 64, 128)
+    ins = (_torch(x, "bfloat16"), torch.from_numpy(dt), torch.from_numpy(cum),
+           _torch(bm, "bfloat16"), _torch(cm, "bfloat16"))
+    gy = torch.from_numpy(np.random.RandomState(30).normal(
+        0, 1, x.shape).astype(np.float32))
+    want = _ssd_plain_grads(ins, r, gy)
+    worst = {name: _ssd_bwd_excess(_ssd_bwd_emulation(
+        *ins, r, gy, mode=mode, mutant=mutant), want)
+        for name, mode, mutant in (("split", "split", None),
+                                   ("tf32", "tf32", None),
+                                   ("skip_block", "split", "skip_block"),
+                                   ("drop_colsum", "split", "drop_colsum"))}
+    print(f"worst error over the limits {worst}")
+    assert max(worst["split"].values()) <= 0.6
+    assert worst["tf32"]["dt"] > 10 and worst["tf32"]["cum"] > 10
+    assert worst["skip_block"]["x"] > 1000
+    assert worst["drop_colsum"]["cum"] > 1000
+
+
+@pytest.mark.parametrize("b,c,q,g,r,p,n", SSD_SWEEP + [(2, 4, 8, 1, 8, 16, 16),
+                                                     (1, 2, 32, 4, 1, 16, 16)])
+def test_ssd_bwd_f32_inputs_hold_the_limits(b, c, q, g, r, p, n):
+    """f32 inputs (the smoke configs), 3xTF32 throughout, at the reference
+    sweep, the smoke chunk of 8 and groups of one head."""
+    ins = tuple(torch.from_numpy(a) for a in _ssd_inputs(q + n, b, c, q, g, r,
+                                                          p, n))
+    gy = torch.from_numpy(np.random.RandomState(q).normal(
+        0, 1, ins[0].shape).astype(np.float32))
+    worst = _ssd_bwd_excess(_ssd_bwd_emulation(*ins, r, gy),
+                            _ssd_plain_grads(ins, r, gy))
+    print(f"worst error over the f32 limit {worst}")
+    assert max(worst.values()) <= 0.5
+
+
+def test_cpu_ssd_gradient_is_plain_autograd_and_launches_nothing():
+    """CPU tensors: ``ssd_diag``'s backward is autograd of the recomputed
+    ``ssd_diag_ref``, bit for bit, and counts no kernel launch."""
+    ins = [torch.from_numpy(a) for a in _ssd_inputs(3, 1, 2, 16, 2, 2, 8, 16)]
+    ins[0], ins[3], ins[4] = (t.to(torch.bfloat16) for t in
+                              (ins[0], ins[3], ins[4]))
+    gy = torch.from_numpy(np.random.RandomState(4).normal(
+        0, 1, ins[0].shape).astype(np.float32))
+    sops.reset_counts()
+    leaves = [x.detach().requires_grad_(True) for x in ins]
+    got = torch.autograd.grad(sops.ssd_diag(*leaves, 2, torch.float32),
+                              leaves, gy)
+    assert sops.LAUNCHES == {"ssd_diag": 0, "ssd_diag_bwd": 0}
+    for a, w in zip(got, _ssd_plain_grads(ins, 2, gy)):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+def test_ssd_bwd_wrapper_raises_on_what_the_kernel_does_not_take():
+    """``ssd_diag_bwd`` checks dtypes and shapes first, then the device: it
+    runs on a CUDA card only, and raises for CPU tensors it would take."""
+    ins = [torch.from_numpy(a) for a in _ssd_inputs(5, 1, 1, 16, 1, 2, 16, 16)]
+    gy = torch.zeros(ins[0].shape)
+    x, dt, cum, bm, cm = ins
+    bad = [((x.half(), dt, cum, bm.half(), cm.half(), 2, gy), TypeError),
+           ((x, dt.double(), cum, bm, cm, 2, gy), TypeError),
+           ((x, dt, cum, bm, cm, 2, gy.double()), TypeError),
+           ((x, dt, cum, bm, cm, 3, gy), ValueError),
+           ((x, dt, cum, bm[..., :8], cm, 2, gy), ValueError),
+           ((x, dt, cum, bm, cm, 2, gy[..., :8]), ValueError),
+           ((torch.zeros(1, 1, 16, 2, 128), dt, cum, bm, cm, 2,
+             torch.zeros(1, 1, 16, 2, 128)), ValueError),
+           ((x, dt, cum, torch.zeros(1, 1, 16, 1, 256),
+             torch.zeros(1, 1, 16, 1, 256), 2, gy), ValueError)]
+    for args, err in bad:
+        with pytest.raises(err):
+            sops.ssd_diag_bwd(*args)
+    with pytest.raises(ValueError, match="CUDA device"):
+        sops.ssd_diag_bwd(*ins, 2, gy)
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():

@@ -172,7 +172,7 @@ def test_meta_branches_launch_nothing():
                                 leaves)
     assert [g.shape for g in grads] == [x.shape for x in xs]
     assert fops.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
-    assert sops.LAUNCHES == {"ssd_diag": 0}
+    assert sops.LAUNCHES == {"ssd_diag": 0, "ssd_diag_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -396,5 +396,5 @@ def test_walking_a_full_width_step_launches_nothing():
     cost = _model_costs(get("llama3.2-3b"), ("prefill",), b=4, s=2048)
     assert cost["prefill"][MXU] == PORT_COSTS["llama3.2-3b full prefill"][0]
     assert fops.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
-    assert sops.LAUNCHES == {"ssd_diag": 0}
+    assert sops.LAUNCHES == {"ssd_diag": 0, "ssd_diag_bwd": 0}
     assert tracer.active_walker() is None

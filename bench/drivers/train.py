@@ -46,12 +46,13 @@ def _faulty(step, fault):
 
 
 def _start_of(specs, seed, device):
-    """``path`` (a unit leaf's path inside the unit, or a top-level key) ->
-    the leaf's seeded starting value, drawn again alone."""
+    """``path`` (a leaf's path in the tree, ``unit.1.attn.wq`` or
+    ``embed``, as the reference's walk names it) -> the leaf's seeded
+    starting value, drawn again alone."""
     index = {p: (i, s) for i, (p, s) in enumerate(weights.tree_items(specs))}
 
     def start(path):
-        i, s = index[path if path in index else "unit.0." + path]
+        i, s = index[path]
         return weights.make_leaf(s, seed, i, device)
 
     return start

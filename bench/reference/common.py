@@ -5,12 +5,25 @@ A reference is the configuration's mathematics written again with plain
 ``torch`` operations in f32 (TF32 off inside :func:`exact_f32`), from the
 benchmark's own weights: no kernel, no cache, nothing of the program.  A
 family module (``reference/<family>.py``) gives the input tree's layout
-(``param_specs``) and one layer (``layer``); this module runs the embedding,
-the layers one at a time (each layer's weights upcast to f32 only while it
-runs, so a 16 B model fits beside its activations), the final norm and the
-tied LM head.  :class:`Numerics` carries the precision: f32, or the
-control's fp8, where both operands of every product are rounded to e4m3
-with a per-tensor scale first (straight through in the backward).
+(``param_specs``, the port's parameter tree) and one layer (``layer``); this
+module runs the embedding, the layers one at a time (each layer's weights
+upcast to f32 only while it runs, so a 16 B model fits beside its
+activations), the final norm and the tied LM head.  :class:`Numerics`
+carries the precision: f32, or the control's fp8, where both operands of
+every product are rounded to e4m3 with a per-tensor scale first (straight
+through in the backward).
+
+The layers are the port's whole list, in its order (:func:`layers`): each
+stacked position of ``tree["unit"]`` at each unit index, then the ``rest``
+layers.  ``fam.layer(sz, w, x, num)`` gets one layer's weights ``w`` (nested
+by their paths inside the position) and tells the layer's kind from the
+keys of ``w``, as the port's tree lays them out: ``mixer`` (a state-space
+mixer) or ``attn`` (self-attention), each after the norm ``ln1``, and
+``moe`` (routed and shared experts) or ``mlp`` (a dense FFN) after ``ln2``
+where the layer has one.  So a family whose layers are of several kinds
+needs nothing here but its own ``param_specs`` and ``layer``.  A slice (a
+layer of a stacked leaf, a rest layer's leaf, or a top-level leaf whole) is
+named by :func:`slice_namer`.
 
 The training step is the configuration's: the mean cross-entropy over the
 padded vocabulary plus 0.01 times the MoE layers' balance loss, gradients
@@ -29,7 +42,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from bench.weights import Spec, tree_items
+from bench.weights import tree_items
 
 FP8_MAX = 448.0
 EPS = 1e-6
@@ -109,18 +122,54 @@ def causal_attention(q, k, v, num: Numerics):
     return torch.stack(out)
 
 
-def unit_leaves(tree) -> list[tuple[str, Spec]]:
-    """(path inside the stacked unit, leaf) of a tree whose layers are one
-    stacked unit (``tree["unit"][0]``), the port's layout for a one-kind
-    pattern."""
-    if len(tree["unit"]) != 1 or tree["rest"]:
-        raise ValueError("the reference runs one stacked layer kind")
-    return list(tree_items(tree["unit"][0]))
+#: the tree's leaves outside the layers, each one slice
+TOP = ("embed", "final_norm")
 
 
-def layer_of(tree, i: int) -> dict:
-    """Layer ``i``'s tensors (views of the stacked leaves), by path."""
-    return {p: t[i] for p, t in unit_leaves(tree)}
+def layers(tree) -> list[tuple[str, int | None, dict]]:
+    """``(position, index, subtree)`` of every layer, in the port's order
+    (``models/transformer.py::_layers``): layer ``u·U + j`` is position
+    ``j`` of ``tree["unit"]`` at index ``u`` of its stacked leaves, then the
+    ``rest`` layers, unstacked (index None).  ``position`` is the
+    subtree's path in the tree: ``unit.<j>`` or ``rest.<j>``."""
+    unit = tree["unit"]
+    n_units = next(tree_items(unit[0]))[1].shape[0]
+    out = [(f"unit.{j}", u, sub) for u in range(n_units)
+           for j, sub in enumerate(unit)]
+    return out + [(f"rest.{j}", None, sub)
+                  for j, sub in enumerate(tree["rest"])]
+
+
+def layer_of(sub, index) -> dict:
+    """A layer's tensors by path inside its position (views of the stacked
+    leaves at ``index``, or a rest layer's leaves)."""
+    return {p: (t if index is None else t[index])
+            for p, t in tree_items(sub)}
+
+
+def leaf_paths(tree) -> list[str]:
+    """Every leaf's path in the tree: the top-level leaves, then each
+    position's (``unit.0.mixer.in_proj``, ``rest.0.ln1``)."""
+    out = list(TOP)
+    for pos in ("unit", "rest"):
+        for j, sub in enumerate(tree[pos]):
+            out += [f"{pos}.{j}.{p}" for p, _ in tree_items(sub)]
+    return out
+
+
+def slice_namer(tree):
+    """``(leaf path, layer index or None) -> slice key``.  A tree of one
+    stacked position and no rest layers keeps the key of the path inside
+    the unit, ``mixer.in_proj[3]``; any other tree names the position too,
+    ``unit.1.attn.wq[3]`` or ``rest.0.ln1``."""
+    one_kind = len(tree["unit"]) == 1 and not tree["rest"]
+
+    def key(path: str, index) -> str:
+        if one_kind and path.startswith("unit.0."):
+            path = path[len("unit.0."):]
+        return path if index is None else f"{path}[{index}]"
+
+    return key
 
 
 def nest(flat: dict) -> dict:
@@ -133,10 +182,6 @@ def nest(flat: dict) -> dict:
             node = node.setdefault(k, {})
         node[last] = t
     return out
-
-
-def n_layers(tree) -> int:
-    return unit_leaves(tree)[0][1].shape[0]
 
 
 def f32(t: torch.Tensor) -> torch.Tensor:
@@ -153,8 +198,8 @@ def final_hidden(fam, sz: dict, tree, batches, num: Numerics = F32):
         hs = [num.act(F.embedding(t.long(), table) * math.sqrt(d))
               for t in batches]
         del table
-        for i in range(n_layers(tree)):
-            w = nest({p: f32(t) for p, t in layer_of(tree, i).items()})
+        for _, index, sub in layers(tree):
+            w = nest({p: f32(t) for p, t in layer_of(sub, index).items()})
             hs = [num.act(fam.layer(sz, w, h, num)[0]) for h in hs]
             del w
         fw = f32(tree["final_norm"])
@@ -183,17 +228,19 @@ def _grads(fam, sz, tree, tokens, labels, num, sink, chunk: int = 512):
     """One step's loss; ``sink(path, layer, grad)`` gets every gradient
     slice in f32 (the final norm first, then the layers from the top, the
     tied embedding last), each layer's backward recomputing it from its
-    saved input."""
+    saved input; ``path`` is the leaf's path in the tree and ``layer`` its
+    index in the stacked leaf (None for a whole leaf)."""
     d = sz["d_model"]
     b, s = tokens.shape
     tokens = tokens.long()
     table = f32(tree["embed"])
+    walk = layers(tree)
     xs, aux_total = [], 0.0
     with torch.no_grad():
         x = num.act(F.embedding(tokens, table) * math.sqrt(d))
-        for i in range(n_layers(tree)):
+        for _, index, sub in walk:
             xs.append(x)
-            w = nest({p: f32(t) for p, t in layer_of(tree, i).items()})
+            w = nest({p: f32(t) for p, t in layer_of(sub, index).items()})
             x, aux = fam.layer(sz, w, x, num)
             x = num.act(x)
             aux_total += float(aux)
@@ -215,10 +262,11 @@ def _grads(fam, sz, tree, tokens, labels, num, sink, chunk: int = 512):
     g, emb_grad = h.grad, emb.grad
     del h, x, fw
     emb.requires_grad_(False)
-    for i in reversed(range(n_layers(tree))):
+    for i in reversed(range(len(walk))):
+        pos, index, sub = walk[i]
         xin = xs[i].requires_grad_()
         flat = {p: f32(t).requires_grad_() for p, t in
-                layer_of(tree, i).items()}
+                layer_of(sub, index).items()}
         y, aux = fam.layer(sz, nest(flat), xin, num)
         obj = (num.act(y) * g).sum()
         if torch.is_tensor(aux) and aux.requires_grad:
@@ -226,7 +274,7 @@ def _grads(fam, sz, tree, tokens, labels, num, sink, chunk: int = 512):
         got = torch.autograd.grad(obj, [xin] + list(flat.values()))
         g = got[0]
         for path, gr in zip(flat, got[1:]):
-            sink(path, i, gr)
+            sink(f"{pos}.{path}", index, gr)
         xs[i] = None
         del flat, y, aux, obj, got, xin
     emb_grad.index_add_(0, tokens.reshape(-1), g.reshape(-1, d) * math.sqrt(d))
@@ -235,16 +283,18 @@ def _grads(fam, sz, tree, tokens, labels, num, sink, chunk: int = 512):
 
 
 def _leaf(tree, path: str):
-    if path in ("embed", "final_norm"):
-        return tree[path]
-    node = tree["unit"][0]
+    """The leaf at a dotted path (``unit.1.attn.wq``, ``embed``)."""
+    node = tree
     for k in path.split("."):
-        node = node[k]
+        node = node[int(k)] if isinstance(node, (tuple, list)) else node[k]
     return node
 
 
-def slice_key(path: str, layer) -> str:
-    return path if layer is None else f"{path}[{layer}]"
+def _slices(tree, path: str):
+    """A leaf's slices: one a layer of a stacked leaf, else the whole."""
+    if path.startswith("unit."):
+        return range(_leaf(tree, path).shape[0])
+    return (None,)
 
 
 def train_steps(fam, sz: dict, tree, batches, opt: dict, start_of,
@@ -257,7 +307,7 @@ def train_steps(fam, sz: dict, tree, batches, opt: dict, start_of,
     draws a leaf's starting value again (the seeded weights)."""
     mu = {p: torch.zeros(_leaf(tree, p).shape, dtype=torch.float32,
                          device=tree["embed"].device)
-          for p in ["embed", "final_norm"] + [p for p, _ in unit_leaves(tree)]}
+          for p in leaf_paths(tree)}
     nu = {p: torch.zeros_like(m) for p, m in mu.items()}
     if two_pass is None:
         n = sum(m.numel() for m in mu.values())
@@ -304,7 +354,8 @@ def train_steps(fam, sz: dict, tree, batches, opt: dict, start_of,
             out["loss"].append(loss)
             out["grad_norm"].append(gn)
             if t == 1:
-                out["grad1"] = {slice_key(*k): math.sqrt(v) * scale
+                key = slice_namer(tree)
+                out["grad1"] = {key(*k): math.sqrt(v) * scale
                                 for k, v in sq.items()}
     out["change"] = change_norms(tree, start_of)
     return out
@@ -313,17 +364,13 @@ def train_steps(fam, sz: dict, tree, batches, opt: dict, start_of,
 def change_norms(tree, start_of) -> dict:
     """Each slice's norm of its leaf less the leaf's start
     (``start_of(path)``, drawn again one leaf at a time)."""
-    out = {}
+    out, key = {}, slice_namer(tree)
     with torch.no_grad():
-        for path in ["embed", "final_norm"] + [p for p, _ in
-                                               unit_leaves(tree)]:
+        for path in leaf_paths(tree):
             now, was = _leaf(tree, path), start_of(path)
-            if path in ("embed", "final_norm"):
-                out[path] = float((now.float() - was.float()).norm())
-            else:
-                for i in range(now.shape[0]):
-                    out[slice_key(path, i)] = float(
-                        (now[i].float() - was[i].float()).norm())
+            for i in _slices(tree, path):
+                a, b = (now, was) if i is None else (now[i], was[i])
+                out[key(path, i)] = float((a.float() - b.float()).norm())
             del was
     return out
 
@@ -331,15 +378,11 @@ def change_norms(tree, start_of) -> dict:
 def slice_norms(tree, factor: float = 1.0) -> dict:
     """Each slice's norm (times ``factor``) of a tree laid out as the
     inputs (an optimizer moment, a gradient)."""
-    out = {}
+    out, key = {}, slice_namer(tree)
     with torch.no_grad():
-        for path in ["embed", "final_norm"] + [p for p, _ in
-                                               unit_leaves(tree)]:
+        for path in leaf_paths(tree):
             t = _leaf(tree, path)
-            if path in ("embed", "final_norm"):
-                out[path] = factor * float(t.float().norm())
-            else:
-                for i in range(t.shape[0]):
-                    out[slice_key(path, i)] = factor * float(
-                        t[i].float().norm())
+            for i in _slices(tree, path):
+                out[key(path, i)] = factor * float(
+                    (t if i is None else t[i]).float().norm())
     return out
